@@ -1,0 +1,83 @@
+"""Carry weights between the JAX package's parameter pytrees and the port's modules.
+
+The JAX GraphSage's parameters are a list (one per layer) of dicts of
+[in, out] matrices and vectors; the port keeps the same layout, so they copy
+over as they are. The JAX CNN's are {"conv0": {"w", "b"}, "conv1": {...}}
+with DHWIO weights; the port's are OIDHW.
+
+The flat leaf order is JAX's pytree flatten order (list index first, then
+dict keys sorted): for a pool layer b_pool, bias, w_neigh, w_pool, w_self;
+for the CNN conv0/b, conv0/w, conv1/b, conv1/w. train/checkpoint.py stores
+leaves in that order, so one checkpoint file loads in both packages.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.refine_cnn import CnnRefinementNet
+from .models.sage import GraphSage
+
+__all__ = ["gnn_params_from_jax", "gnn_params_to_jax", "cnn_params_from_jax",
+           "cnn_params_to_jax", "POOL_LAYER_KEYS", "CNN_KEYS"]
+
+POOL_LAYER_KEYS = ("b_pool", "bias", "w_neigh", "w_pool", "w_self")
+CNN_KEYS = (("conv0", "b"), ("conv0", "w"), ("conv1", "b"), ("conv1", "w"))
+_CNN_ATTRS = {("conv0", "w"): "w0", ("conv0", "b"): "b0",
+              ("conv1", "w"): "w1", ("conv1", "b"): "b1"}
+_DHWIO_TO_OIDHW = (4, 3, 0, 1, 2)
+_OIDHW_TO_DHWIO = (2, 3, 4, 1, 0)
+
+
+def _copy_into(param: torch.nn.Parameter, value, name: str) -> None:
+    value = torch.tensor(np.asarray(value, np.float32))
+    if tuple(value.shape) != tuple(param.shape):
+        raise ValueError(f"{name}: shape {tuple(value.shape)} does not match "
+                         f"the model's {tuple(param.shape)}")
+    with torch.no_grad():
+        param.copy_(value)
+
+
+def gnn_params_from_jax(params: list[dict], dropout: float = 0.0,
+                        device="cpu") -> GraphSage:
+    """A GraphSage-pool holding the JAX GraphSage parameters `params` (list
+    of per-layer dicts of numpy arrays); widths are read from the shapes."""
+    for i, lp in enumerate(params):
+        if set(lp) != set(POOL_LAYER_KEYS):
+            raise ValueError(f"layer {i}: keys {sorted(lp)} are not a pool "
+                             f"layer's {list(POOL_LAYER_KEYS)}")
+    dims = [np.shape(params[0]["w_self"])[0]] + [
+        np.shape(lp["w_self"])[1] for lp in params]
+    model = GraphSage(dims[0], dims[1:-1], dims[-1], dropout)
+    for i, (layer, lp) in enumerate(zip(model.layers, params)):
+        for key in POOL_LAYER_KEYS:
+            _copy_into(getattr(layer, key), lp[key], f"layer {i} {key}")
+    return model.to(device)
+
+
+def gnn_params_to_jax(model: GraphSage) -> list[dict]:
+    """The JAX GraphSage parameter list (numpy float32) of `model`."""
+    return [{key: getattr(layer, key).detach().cpu().numpy()
+             for key in POOL_LAYER_KEYS} for layer in model.layers]
+
+
+def cnn_params_from_jax(params: dict, device="cpu") -> CnnRefinementNet:
+    """A CnnRefinementNet holding the JAX CNN parameters (DHWIO weights)."""
+    w0, w1 = np.asarray(params["conv0"]["w"]), np.asarray(params["conv1"]["w"])
+    net = CnnRefinementNet(w0.shape[3], w1.shape[4], [w0.shape[4]])
+    for (layer, key), attr in _CNN_ATTRS.items():
+        value = np.asarray(params[layer][key], np.float32)
+        if key == "w":
+            value = value.transpose(_DHWIO_TO_OIDHW)
+        _copy_into(getattr(net, attr), value, f"{layer}/{key}")
+    return net.to(device)
+
+
+def cnn_params_to_jax(net: CnnRefinementNet) -> dict:
+    """The JAX CNN parameter dict (numpy float32, DHWIO weights) of `net`."""
+    out: dict = {"conv0": {}, "conv1": {}}
+    for (layer, key), attr in _CNN_ATTRS.items():
+        value = getattr(net, attr).detach().cpu().numpy()
+        out[layer][key] = value.transpose(_OIDHW_TO_DHWIO) if key == "w" else value
+    return out

@@ -1,0 +1,100 @@
+"""Checkpoints in the JAX package's format, read and written without JAX
+(counterpart of gnn_tumor_seg_tpu/train/checkpoint.py).
+
+Format: one .npz holding the parameter leaves as `p/{i}` in JAX's pytree
+flatten order (convert.py) plus a `__manifest__` JSON (model type,
+HyperParams, leaf count). The JAX loader rebuilds its tree from a template
+and reads only `n_params` of the manifest, so a checkpoint written here loads
+there, and the reverse.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import tempfile
+
+import numpy as np
+
+from ..config import HyperParams
+from ..convert import (CNN_KEYS, POOL_LAYER_KEYS, cnn_params_from_jax,
+                       cnn_params_to_jax, gnn_params_from_jax,
+                       gnn_params_to_jax)
+from ..models.refine_cnn import CnnRefinementNet
+from ..models.sage import GraphSage
+
+__all__ = ["save_checkpoint", "load_checkpoint", "gnn_from_leaves",
+           "cnn_from_leaves"]
+
+_MANIFEST_KEY = "__manifest__"
+
+
+def _leaves(model) -> tuple[list[np.ndarray], str]:
+    if isinstance(model, GraphSage):
+        params = gnn_params_to_jax(model)
+        return ([lp[k] for lp in params for k in POOL_LAYER_KEYS],
+                f"list of {len(params)} dicts {list(POOL_LAYER_KEYS)}")
+    if isinstance(model, CnnRefinementNet):
+        params = cnn_params_to_jax(model)
+        return ([params[a][b] for a, b in CNN_KEYS],
+                f"dict {['/'.join(k) for k in CNN_KEYS]}")
+    raise TypeError(f"cannot checkpoint a {type(model).__name__}")
+
+
+def save_checkpoint(path: str, model, model_type: str, hp: HyperParams) -> None:
+    """Write `model` (a GraphSage or CnnRefinementNet) with its config;
+    atomic (temporary file renamed into place)."""
+    leaves, treedef = _leaves(model)
+    manifest = {
+        "model_type": model_type,
+        "hyperparams": json.loads(hp.to_json()),
+        "treedef": treedef,
+        "n_params": len(leaves),
+        "extra": {},
+        "format_version": 1,
+    }
+    payload = {f"p/{i}": np.asarray(v, np.float32) for i, v in enumerate(leaves)}
+    payload[_MANIFEST_KEY] = np.frombuffer(json.dumps(manifest).encode(),
+                                           dtype=np.uint8)
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **payload)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def load_checkpoint(path: str):
+    """Returns (leaves list[np.ndarray], model_type, HyperParams, manifest)."""
+    with np.load(path) as z:
+        manifest = json.loads(bytes(z[_MANIFEST_KEY].tobytes()).decode())
+        leaves = [z[f"p/{i}"] for i in range(manifest["n_params"])]
+    hp = HyperParams.from_json(json.dumps(manifest["hyperparams"]))
+    return leaves, manifest["model_type"], hp, manifest
+
+
+def gnn_from_leaves(leaves: list[np.ndarray], hp: HyperParams,
+                    device="cpu") -> GraphSage:
+    """A GraphSage-pool from checkpoint leaves (JAX flatten order)."""
+    k = len(POOL_LAYER_KEYS)
+    if len(leaves) % k:
+        raise ValueError(f"{len(leaves)} leaves are not a whole number of "
+                         f"pool layers ({k} leaves each)")
+    params = [dict(zip(POOL_LAYER_KEYS, leaves[i:i + k]))
+              for i in range(0, len(leaves), k)]
+    return gnn_params_from_jax(params, dropout=hp.feature_dropout or 0.0,
+                               device=device)
+
+
+def cnn_from_leaves(leaves: list[np.ndarray], device="cpu") -> CnnRefinementNet:
+    """A CnnRefinementNet from checkpoint leaves (JAX flatten order)."""
+    if len(leaves) != len(CNN_KEYS):
+        raise ValueError(f"expected {len(CNN_KEYS)} CNN leaves, got {len(leaves)}")
+    params: dict = {"conv0": {}, "conv1": {}}
+    for (a, b), leaf in zip(CNN_KEYS, leaves):
+        params[a][b] = leaf
+    return cnn_params_from_jax(params, device=device)

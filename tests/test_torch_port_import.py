@@ -1,0 +1,59 @@
+"""The PyTorch port imports neither JAX nor any module of the JAX package.
+
+Every module of gnn_tumor_seg_tpu_torch is imported in a fresh interpreter,
+which then must hold no `jax` and no `gnn_tumor_seg_tpu` module. Importing
+must also build nothing: the kernels are compiled at first use.
+"""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import gnn_tumor_seg_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "gnn_tumor_seg_tpu"
+             or m.startswith("gnn_tumor_seg_tpu."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    import json
+
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["bad"] == []
+    expected = {
+        "gnn_tumor_seg_tpu_torch.cli.predict_single",
+        "gnn_tumor_seg_tpu_torch.ops.kernels.max_agg",
+        "gnn_tumor_seg_tpu_torch.data.native",
+        "gnn_tumor_seg_tpu_torch.train.checkpoint",
+        "gnn_tumor_seg_tpu_torch.convert",
+    }
+    assert expected <= set(result["modules"])
+
+
+def test_entry_points_refuse_a_missing_gpu():
+    """With no CUDA device, an entry point left at its default device raises
+    instead of carrying on on the CPU."""
+    import pytest
+    import torch
+
+    from gnn_tumor_seg_tpu_torch.runtime import resolve_device
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
