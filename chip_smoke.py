@@ -8,12 +8,17 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases; the first failure ends the run with a non-zero exit and no result:
 
 1. environment: torch, CUDA, triton, nvcc, and the card's name and power limit;
-2. build: the max-aggregation CUDA kernel (nvcc, sm_90a) and the native host
-   library (g++), both from the sources in this checkout, built in parallel;
-3. kernel check: the kernel against its plain PyTorch version on the card at
+2. build: the CUDA kernels max_agg.cu (max aggregation and its backward) and
+   sum_agg.cu (nvcc, sm_90a) and the native host library (g++), all from
+   the sources in this checkout, one compiler process each, in parallel;
+3. kernel check: max_agg against its plain PyTorch version on the card at
    random tables of the node bucket 8192 (B=1, D=12/16, F=20/256, f32 and
-   bf16, with and without the winner-slot store) and at edge cases; out and
-   arg must be bitwise equal, since max does no arithmetic;
+   bf16, with and without the winner-slot store) and at edge cases; then,
+   at the training shapes (B=6, N=8192, D=12/16, F=20/256, f32 and bf16) on
+   random symmetric tables with ties and rows without a neighbour, max_agg
+   with its store, max_agg_bwd and sum_agg (sum and mean). Every result must
+   be bitwise equal to the plain version's, and two runs of each backward
+   kernel bitwise equal to each other;
 4. serve: one 240x240x155 synthetic brain written as NIfTI, GSpool [256]*6 and
    CNN 8->16->4 checkpoints from seeded weights in the JAX package's format,
    three requests through cli.predict_single.predict_single_mri under "exact"
@@ -24,12 +29,28 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    request with cnn_prep="host" must give the device variant's labels. One
    more exact request runs under torch.profiler for the device's busy time
    and the kernels that fill it;
-5. timing, on the served graph's own neighbour table (N=12288, D=16 for
-   this brain): the kernel checked bitwise against its plain version once
+5. serve timing, on the served graph's own neighbour table (N=12288, D=16
+   for this brain): max_agg checked bitwise against its plain version once
    more at F=20 and 256 in both dtypes, then its device time (CUDA-graph
    replay), its eager call time, its plain version, the library call
    F.embedding_bag(mode="max") and its byte bound, per request (1 launch at
-   F=20, 6 at F=256).
+   F=20, 6 at F=256);
+6. training, the cell train-gspool-7x256-b6: 6 graphs of 7000 nodes (k=10,
+   padded to 8192 x 12) written as a preprocessed data directory, then
+   cli.train_gnn.main on the card: GSpool [256]*6 for 3 epochs in "fast"
+   (the loss must fall) and 1 in "exact", GSmean and GSgcn for 1 epoch each.
+   Each run's kernel launches must be what the model needs (GSpool: 7
+   max_agg with the store and 7 max_agg_bwd per step; GSmean and GSgcn: 7
+   sum_agg forward and 6 backward per step; 7 per evaluation batch); a
+   checkpoint must serve through load_gnn_from_checkpoint; on one batch in
+   "exact" the parameter gradients through the kernels must equal those
+   through the plain aggregation, bitwise, for all three models;
+7. training timing: the flagship step in "exact" and "fast" (median step
+   time, edges_per_s), torch.profiler over 3 more steps of each (device busy
+   and idle share, top kernels), and per kernel at the batch's own table (B=6,
+   N=8192, D=12): device time (CUDA-graph replay), plain version, library
+   yardstick (embedding_bag's sum and mean, the backward alone of its max,
+   and its max forward) and byte bound.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; before it, one JSON line lists the kernels. The last line is
@@ -63,6 +84,12 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 # fast mode: bf16 activations through 7 layers; logits of the kernel and the
 # plain path are expected bitwise equal (max is exact), this bounds them anyway
 FAST_LOGIT_TOL = 1e-2
+# the training cell, train-gspool-7x256-b6 (bench.py:147-161): 6 graphs of
+# 7000 nodes, k=10, padded to the 8192-node bucket (degree bucket 12)
+TRAIN_BATCH = 6
+TRAIN_NODES = 7000
+TRAIN_K = 10
+TRAIN_WIDTHS = [256] * 6
 
 
 class SmokeFailure(RuntimeError):
@@ -116,7 +143,7 @@ def make_brain(rng, shape=BRAIN_SHAPE, radii=(36, 24, 12)):
 
 
 def phase_environment() -> dict:
-    from gnn_tumor_seg_tpu_torch.ops.kernels import max_agg
+    from gnn_tumor_seg_tpu_torch.build import nvcc_path
 
     log(f"[env] python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}  cudnn {torch.backends.cudnn.version()}")
@@ -125,7 +152,7 @@ def phase_environment() -> dict:
         log(f"[env] triton {triton.__version__}")
     except ImportError:
         log("[env] triton not importable")
-    nvcc = subprocess.run([max_agg.nvcc_path(), "--version"], capture_output=True,
+    nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
     log("[env] nvcc: " + nvcc.splitlines()[-1])
     card = card_line()
@@ -136,23 +163,27 @@ def phase_environment() -> dict:
 
 
 def phase_build() -> None:
+    """Every library from its source, one compiler process each, all started
+    together."""
     from gnn_tumor_seg_tpu_torch.data import native
-    from gnn_tumor_seg_tpu_torch.ops.kernels import max_agg
+    from gnn_tumor_seg_tpu_torch.ops.kernels import max_agg, sum_agg
 
     def timed(fn):
         t = time.perf_counter()
         out = fn()
         return out, time.perf_counter() - t
 
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        cuda_job = pool.submit(timed, max_agg.build)
-        host_job = pool.submit(timed, native.build)
-        cuda_log, cuda_s = cuda_job.result()
-        host_log, host_s = host_job.result()
-    log(f"[build] max_agg.cu (nvcc sm_90a): {cuda_s:.2f} s")
-    for line in cuda_log.strip().splitlines():
-        log(f"[build]   {line}")
-    log(f"[build] gts_native.cc (g++): {host_s:.2f} s")
+    jobs = {"max_agg.cu (nvcc sm_90a)": max_agg.build,
+            "sum_agg.cu (nvcc sm_90a)": sum_agg.build,
+            "gts_native.cc (g++)": native.build}
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {name: pool.submit(timed, fn) for name, fn in jobs.items()}
+        for name, fut in futures.items():
+            out, secs = fut.result()
+            log(f"[build] {name}: {secs:.2f} s")
+            if name.endswith("(nvcc sm_90a)"):
+                for line in out.strip().splitlines():
+                    log(f"[build]   {line}")
     check(native.available(), "native host library did not load")
 
 
@@ -176,6 +207,24 @@ def random_tables(rng, B, N, D, n_real=None, zero_frac=0.05, tie_frac=0.1):
     mask = (np.arange(D)[None, None, :] < deg[..., None]).astype(np.float32)
     nbr[mask == 0] = 0
     return nbr, mask
+
+
+def _device_us(e) -> float:
+    return (getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0) or 0)
+
+
+def device_events(prof) -> list:
+    """The profiler's device-side work (kernels, copies, memsets) by name,
+    most time first. The device ranges of user annotations
+    (record_function, e.g. gnn_train_step, Optimizer.step) span other work
+    and are left out, or busy time would count that work twice."""
+    from torch.autograd import DeviceType
+
+    return sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=_device_us, reverse=True)
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -220,6 +269,98 @@ def phase_kernel_check(dev) -> float:
     return worst
 
 
+def symmetric_tables(rng, B, N, D, n_real=None, isolated_frac=0.05):
+    """nbr/mask/rslot of random undirected, deduplicated graphs with degree
+    at most D, laid out by ops/graph.ell_from_edges: some isolated nodes and,
+    past n_real, padded nodes (both rows without a real slot). An edge is
+    kept when it is among the first D candidates of both its ends, so no
+    row overflows."""
+    from gnn_tumor_seg_tpu_torch.ops.graph import ell_from_edges, reciprocal_slots
+
+    n_real = N if n_real is None else n_real
+    nbrs, masks = [], []
+    for _ in range(B):
+        live = np.nonzero(rng.random(n_real) >= isolated_frac)[0]
+        m = len(live) * D // 2
+        a, c = rng.choice(live, m), rng.choice(live, m)
+        pairs = np.unique(np.sort(np.stack([a[a != c], c[a != c]], 1), 1), axis=0)
+        pairs = pairs[rng.permutation(len(pairs))]
+        ends = pairs.reshape(-1)                       # [a0, c0, a1, c1, ...]
+        order = np.argsort(ends, kind="stable")
+        first = np.searchsorted(ends[order], ends[order])
+        rank = np.empty(len(ends), np.int64)
+        rank[order] = np.arange(len(ends)) - first
+        keep = (rank.reshape(-1, 2) < D).all(axis=1)
+        e = pairs[keep]
+        nbr, mask = ell_from_edges(n_real, np.concatenate([e[:, 0], e[:, 1]]),
+                                   np.concatenate([e[:, 1], e[:, 0]]),
+                                   n_pad=N, d_pad=D)
+        nbrs.append(nbr)
+        masks.append(mask)
+    nbr, mask = np.stack(nbrs), np.stack(masks)
+    return nbr, mask, reciprocal_slots(nbr, mask)
+
+
+def phase_train_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
+                             B=TRAIN_BATCH) -> dict:
+    """The training kernels against their plain versions on the card at the
+    training shapes (B=6, N=8192 of which 7000 real, D=12/16, F=20/256, f32
+    and bf16), on random symmetric tables with ties: max_agg with its
+    winner-slot store, max_agg_bwd, and sum_agg (sum and mean), bitwise; two
+    backward runs bitwise equal to each other (determinism). Returns the
+    largest difference seen per kernel (0 when bitwise)."""
+    from gnn_tumor_seg_tpu_torch.ops.kernels.max_agg import (
+        max_aggregate, max_aggregate_backward, max_aggregate_backward_plain,
+        max_aggregate_plain)
+    from gnn_tumor_seg_tpu_torch.ops.kernels.sum_agg import (
+        sum_aggregate, sum_aggregate_plain)
+
+    rng = np.random.default_rng(SEED + 1)
+    worst = {"max_agg": 0.0, "max_agg_bwd": 0.0, "sum_agg": 0.0}
+
+    def same(got, want, kernel, tag):
+        err = (got.float() - want.float()).abs().max().item()
+        worst[kernel] = max(worst[kernel], err)
+        check(torch.equal(_bits(got), _bits(want)),
+              f"{kernel} differs from its plain version ({tag}): max abs {err}")
+
+    for D in (12, 16):
+        nbr_np, mask_np, rslot_np = symmetric_tables(rng, B, N, D, n_real=n_real)
+        nbr, mask, rslot = (torch.from_numpy(a).to(dev)
+                            for a in (nbr_np, mask_np, rslot_np))
+        for F in (20, 256):
+            shape = (B, N, F)
+            # quarter steps: many exact ties among neighbours, exact in bf16
+            ties = torch.from_numpy(rng.integers(-8, 8, shape) / 4.0).float().to(dev)
+            gout32 = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                tag = f"B={B} N={N} D={D} F={F} {str(dtype)[6:]}"
+                h, gout = ties.to(dtype), gout32.to(dtype)
+                out, arg = max_aggregate(h, nbr, mask, with_arg=True)
+                want_out, want_arg = max_aggregate_plain(h, nbr, mask)
+                same(out, want_out, "max_agg", tag)
+                check(torch.equal(arg, want_arg), f"max_agg arg differs ({tag})")
+                grad = max_aggregate_backward(gout, arg, nbr, mask, rslot)
+                again = max_aggregate_backward(gout, arg, nbr, mask, rslot)
+                same(grad, max_aggregate_backward_plain(gout, arg, nbr, mask, rslot),
+                     "max_agg_bwd", tag)
+                check(torch.equal(_bits(grad), _bits(again)),
+                      f"max_agg_bwd is not deterministic ({tag})")
+                for mean in (False, True):
+                    x = gout if mean else h
+                    got = sum_aggregate(x, nbr, mask, mean)
+                    again = sum_aggregate(x, nbr, mask, mean)
+                    same(got, sum_aggregate_plain(x, nbr, mask, mean), "sum_agg",
+                         f"{tag} {'mean' if mean else 'sum'}")
+                    check(torch.equal(_bits(got), _bits(again)),
+                          f"sum_agg is not deterministic ({tag})")
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                log(f"[kernel] bitwise equal to plain, deterministic: {tag}: "
+                    f"max_agg (arg stored), max_agg_bwd, sum_agg sum and mean")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve
 # ---------------------------------------------------------------------------
@@ -227,22 +368,25 @@ def phase_kernel_check(dev) -> float:
 
 @contextlib.contextmanager
 def plain_aggregation():
-    """Route ops.aggregate's max through the plain version for a comparison
-    run (on the card); the port itself never does this on a CUDA tensor."""
-    from gnn_tumor_seg_tpu_torch.ops import aggregate
-    from gnn_tumor_seg_tpu_torch.ops.kernels.max_agg import max_aggregate_plain
+    """Route every aggregation (forward and backward) through the plain
+    versions for a comparison run on the card; the port itself never does
+    this on a CUDA tensor."""
+    from gnn_tumor_seg_tpu_torch.ops.kernels import max_agg, sum_agg
 
-    kernel = aggregate.max_aggregate
-
-    def plain(h, nbr, nbr_mask, with_arg=True):
-        out, arg = max_aggregate_plain(h, nbr, nbr_mask)
+    def plain_max(h, nbr, nbr_mask, with_arg=True):
+        out, arg = max_agg.max_aggregate_plain(h, nbr, nbr_mask)
         return out, (arg if with_arg else None)
 
-    aggregate.max_aggregate = plain
+    saved = (max_agg.max_aggregate, max_agg.max_aggregate_backward,
+             sum_agg.sum_aggregate)
+    max_agg.max_aggregate = plain_max
+    max_agg.max_aggregate_backward = max_agg.max_aggregate_backward_plain
+    sum_agg.sum_aggregate = sum_agg.sum_aggregate_plain
     try:
         yield
     finally:
-        aggregate.max_aggregate = kernel
+        (max_agg.max_aggregate, max_agg.max_aggregate_backward,
+         sum_agg.sum_aggregate) = saved
 
 
 def write_inputs(tmp: str, shape) -> tuple[str, str, str]:
@@ -381,7 +525,6 @@ def profile_request(run, n_layers: int, card: str) -> int:
     sum of kernel and copy time on the card; one stream, so they do not
     overlap) against the request's wall time, and the kernels that take it.
     Returns the kernel launches counted in the request."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from gnn_tumor_seg_tpu_torch.ops.kernels.max_agg import max_aggregate
@@ -395,20 +538,14 @@ def profile_request(run, n_layers: int, card: str) -> int:
     launches = max_aggregate.launches
     check(launches == n_layers, f"profiled request: {launches} kernel launches")
 
-    def device_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0) or 0)
-
-    on_device = sorted((e for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA),
-                       key=device_us, reverse=True)
-    busy_ms = sum(device_us(e) for e in on_device) / 1e3
+    on_device = device_events(prof)
+    busy_ms = sum(_device_us(e) for e in on_device) / 1e3
     log(f"[profile] exact request: wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.3f} ms, idle share "
         f"{(1 - busy_ms / wall_ms) if busy_ms else float('nan'):.6f}; "
         f"card: {card}")
     for e in on_device[:12]:
-        log(f"[profile]   {device_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+        log(f"[profile]   {_device_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
     return launches
 
 
@@ -553,6 +690,398 @@ def phase_timing(graph, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: training
+# ---------------------------------------------------------------------------
+
+
+def flagship_sample(rng, n_nodes, k=TRAIN_K, f_dim=IN_FEATS):
+    """One graph of the training cell: the ring-shaped kNN structure of
+    __graft_entry__.py:28-45 (each node linked to its k/2 successors, both
+    directions stored; copied, since that module imports JAX), with labels
+    on four arcs of the ring and features drawn around per-class means, so
+    a falling loss means the model learns something."""
+    half = k // 2
+    base = np.arange(n_nodes)
+    src = np.concatenate([(base + o) % n_nodes for o in range(1, half + 1)])
+    dst = np.tile(base, half)
+    cuts = np.sort(rng.choice(np.arange(1, n_nodes), 3, replace=False))
+    labels = rng.permutation(4)[np.searchsorted(cuts, base, side="right")]
+    class_means = rng.normal(0, 1.0, (4, f_dim))
+    feats = (class_means[labels] + rng.normal(0, 1.0, (n_nodes, f_dim)))
+    return (feats.astype(np.float32), np.concatenate([src, dst]),
+            np.concatenate([dst, src]), labels.astype(np.int32))
+
+
+def write_train_data(root: str, n_samples: int = TRAIN_BATCH) -> None:
+    """A preprocessed data directory of the training cell: per sample the
+    graph (.npz) and a small supervoxel and label volume (one voxel per node
+    plus a background margin), so that evaluate runs."""
+    from gnn_tumor_seg_tpu_torch.data import nifti, store
+    from gnn_tumor_seg_tpu_torch.data.graph_build import GraphSample
+    from gnn_tumor_seg_tpu_torch.data.image import project_nodes_to_img
+
+    rng = np.random.default_rng(SEED)
+    vol_shape = (24, 24, 16)          # 9216 voxels >= 7000 nodes
+    for i in range(n_samples):
+        feats, src, dst, labels = flagship_sample(rng, TRAIN_NODES)
+        mri_id = f"train_{i:03d}"
+        d = os.path.join(root, mri_id)
+        os.makedirs(d)
+        store.save_graph_npz(os.path.join(d, f"{mri_id}_graph.npz"), GraphSample(
+            feats=feats, labels=labels, centroids=np.zeros((len(feats), 3)),
+            src=src, dst=dst, sv_partition=None))
+        sv = np.arange(np.prod(vol_shape)).reshape(vol_shape)
+        sv = np.where(sv < len(feats), sv, -1).astype(np.int16)
+        nifti.save_as_nifti(sv, os.path.join(d, f"{mri_id}_supervoxels.nii.gz"))
+        nifti.save_as_nifti(project_nodes_to_img(sv, labels).astype(np.int16),
+                            os.path.join(d, f"{mri_id}_label.nii.gz"))
+
+
+def _reset_counts():
+    from gnn_tumor_seg_tpu_torch.ops.kernels.max_agg import (
+        max_aggregate, max_aggregate_backward)
+    from gnn_tumor_seg_tpu_torch.ops.kernels.sum_agg import sum_aggregate
+
+    for fn in (max_aggregate, max_aggregate_backward, sum_aggregate):
+        fn.launches = 0
+    return lambda: {"max_agg": max_aggregate.launches,
+                    "max_agg_bwd": max_aggregate_backward.launches,
+                    "sum_agg": sum_aggregate.launches}
+
+
+def train_cli_run(data_dir, out_dir, run, model_type, n_epochs, precision,
+                  card, device="cuda") -> dict:
+    """One run of cli.train_gnn.main (-k 1), with every kernel count set to
+    0 just before it and read just after. On the card, checks the per-step
+    launches; returns the epochs' log records and the counts. On the CPU (a
+    rehearsal) no kernel is launched."""
+    from gnn_tumor_seg_tpu_torch.cli import train_gnn
+
+    layers = len(TRAIN_WIDTHS) + 1
+    argv = ["-d", data_dir, "-o", out_dir, "-r", run, "-m", model_type, "-k", "1",
+            "--hp", f"layer_sizes={TRAIN_WIDTHS}", "--hp", f"n_epochs={n_epochs}",
+            "--device", device]
+    old = os.environ.get("GTS_PALLAS_PRECISION")
+    os.environ["GTS_PALLAS_PRECISION"] = precision
+    try:
+        read = _reset_counts()
+        t = time.perf_counter()
+        train_gnn.main(argv)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = read()
+    finally:
+        if old is None:
+            os.environ.pop("GTS_PALLAS_PRECISION")
+        else:
+            os.environ["GTS_PALLAS_PRECISION"] = old
+    with open(os.path.join(out_dir, f"{run}.txt.jsonl")) as f:
+        epochs = [json.loads(line) for line in f if '"epoch"' in line]
+    steps = sum(e["steps"] for e in epochs)
+    eval_batches = 1                  # 6 samples, batch 6
+    if device != "cuda":
+        want = {"max_agg": 0, "max_agg_bwd": 0, "sum_agg": 0}
+    elif model_type == "GSpool":
+        want = {"max_agg": layers * (steps + eval_batches),
+                "max_agg_bwd": layers * steps, "sum_agg": 0}
+    else:
+        # the first layer's input needs no gradient: 7 forward + 6 backward
+        want = {"max_agg": 0, "max_agg_bwd": 0,
+                "sum_agg": (2 * layers - 1) * steps + layers * eval_batches}
+    check(counts == want, f"{run}: kernel launches {counts}, expected {want}")
+    losses = [e["loss"] for e in epochs]
+    check(all(np.isfinite(losses)), f"{run}: non-finite losses {losses}")
+    impl = "cuda" if device == "cuda" else "plain"
+    check(all(e["precision"] == precision and e["impl"] == impl for e in epochs),
+          f"{run}: epochs ran as {[(e['precision'], e['impl']) for e in epochs]}")
+    log(f"[train] {run}: {model_type} {precision}, {len(epochs)} epochs x "
+        f"{epochs[0]['steps']} step(s), losses {losses}, launches {counts} "
+        f"({steps} steps + {eval_batches} eval batch), edges_per_s "
+        f"{[round(e['edges_per_s']) for e in epochs]}, wall {wall:.2f} s; "
+        f"card: {card}")
+    return {"epochs": epochs, "counts": counts, "steps": steps}
+
+
+def grads_match_plain(dataset, model_type, card, device="cuda") -> None:
+    """One batch in exact mode: the parameter gradients through the kernels
+    equal those through the plain aggregation, bitwise (the kernels are
+    bitwise equal to their plain versions and the rest is the same code)."""
+    from gnn_tumor_seg_tpu_torch.ops.graph import batch_graphs
+    from gnn_tumor_seg_tpu_torch.ops.precision import precision_scope
+    from gnn_tumor_seg_tpu_torch.train.gnn_trainer import GNNTrainer
+    from gnn_tumor_seg_tpu_torch.train.losses import weighted_cross_entropy
+
+    hp = _train_hp()
+    trainer = GNNTrainer(model_type, hp, dataset, seed=SEED, device=device)
+    batch = batch_graphs([dataset.get_graph(i) for i in range(len(dataset))]).to(device)
+    params = trainer.model.jax_parameters()
+
+    def grads():
+        with precision_scope("exact"):
+            logits = trainer.model(batch, train=True)
+            loss = weighted_cross_entropy(logits, batch.labels,
+                                          trainer.class_weights, batch.node_mask)
+            return torch.autograd.grad(loss, params)
+
+    kern = grads()
+    with plain_aggregation():
+        plain = grads()
+    diff = max((a - b).abs().max().item() for a, b in zip(kern, plain))
+    check(all(torch.equal(a, b) for a, b in zip(kern, plain)),
+          f"{model_type}: parameter gradients through the kernels differ from "
+          f"the plain aggregation's (max abs {diff})")
+    log(f"[train] {model_type} exact: parameter gradients through the kernels "
+        f"equal the plain aggregation's ({len(params)} tensors); card: {card}")
+
+
+def _train_hp():
+    from gnn_tumor_seg_tpu_torch.config import hardcoded_hyperparameters
+
+    hp = hardcoded_hyperparameters("GSpool")
+    hp.layer_sizes = list(TRAIN_WIDTHS)
+    return hp
+
+
+def phase_train(tmp: str, card: str, device="cuda") -> dict:
+    """The training main path through cli.train_gnn on the card: GSpool
+    [256]*6 for 3 epochs in "fast" (the loss must fall) and 1 in "exact",
+    GSmean and GSgcn for 1 epoch each; a checkpoint served through
+    load_gnn_from_checkpoint; gradients through the kernels against the plain
+    aggregation's for the three models."""
+    from gnn_tumor_seg_tpu_torch.cli.common import load_gnn_from_checkpoint
+    from gnn_tumor_seg_tpu_torch.data.dataset import ImageGraphDataset
+
+    data_dir = os.path.join(tmp, "train_data")
+    out_dir = os.path.join(tmp, "train_logs")
+    t = time.perf_counter()
+    write_train_data(data_dir)
+    log(f"[train] wrote {TRAIN_BATCH} samples of {TRAIN_NODES} nodes in "
+        f"{time.perf_counter() - t:.2f} s")
+    plan = [("gspool_fast", "GSpool", 3, "fast"),
+            ("gspool_exact", "GSpool", 1, "exact"),
+            ("gsmean", "GSmean", 1, "fast"), ("gsgcn", "GSgcn", 1, "fast")]
+    runs = {run: train_cli_run(data_dir, out_dir, run, model_type, epochs,
+                               precision, card, device)
+            for run, model_type, epochs, precision in plan}
+    losses = [e["loss"] for e in runs["gspool_fast"]["epochs"]]
+    check(losses[-1] < losses[0], f"GSpool loss did not fall: {losses}")
+    with open(os.path.join(out_dir, "gspool_fast.txt")) as f:
+        rows = [line for line in f if line.startswith("gspool_fast_full\t")]
+    check(len(rows) == 1, "no progress row for the GSpool run")
+    log(f"[train] progress row: {rows[0].strip()}")
+
+    dataset = ImageGraphDataset(data_dir, read_image=False)
+    model, _, forward = load_gnn_from_checkpoint(
+        os.path.join(out_dir, "gspool_fast_f1.ckpt"), device=device)
+    read = _reset_counts()
+    graph = dataset.get_graph(0)
+    logits = forward(graph)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        check(read()["max_agg"] == model.num_layers,
+              f"served checkpoint: {read()} launches")
+    check(logits.shape == (1, graph.num_nodes_padded, 4)
+          and bool(torch.isfinite(logits).all()),
+          f"served checkpoint logits {tuple(logits.shape)}, finite "
+          f"{bool(torch.isfinite(logits).all())}")
+    log("[train] gspool_fast_f1.ckpt served through load_gnn_from_checkpoint: "
+        f"finite logits {tuple(logits.shape)}, {model.num_layers} max_agg launches")
+    for model_type in ("GSpool", "GSmean", "GSgcn"):
+        grads_match_plain(dataset, model_type, card, device)
+    return {"runs": runs, "data_dir": data_dir}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training timing
+# ---------------------------------------------------------------------------
+
+
+def profile_train_steps(trainer, card, steps: int = 3) -> dict:
+    """`steps` more epochs (one step each) under torch.profiler: the
+    device's busy time and idle share over their wall time, and the top
+    device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            trainer.run_epoch()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    on_device = device_events(prof)
+    busy_ms = sum(_device_us(e) for e in on_device) / 1e3
+    check(busy_ms > 0, "the profiler saw no device time")
+    idle = 1 - busy_ms / wall_ms
+    log(f"[train-profile] {steps} {trainer.precision} steps: wall {wall_ms:.3f} "
+        f"ms, device busy {busy_ms:.3f} ms, idle share {idle:.6f}; card: {card}")
+    top = []
+    for e in on_device[:15]:
+        log(f"[train-profile]   {_device_us(e) / 1e3:9.3f} ms  x{e.count:<4d} "
+            f"{e.key[:100]}")
+        top.append([e.key[:60], round(_device_us(e) / 1e3, 4), e.count])
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": idle, "top": top}
+
+
+def time_train_steps(dataset, card, steps: int = 8) -> dict:
+    """The flagship step (GSpool [256]*6, batch 6 x 8192) through
+    GNNTrainer.run_epoch, one step per epoch, in "exact" and "fast": the
+    median epoch wall time (host clock, ending in the epoch's one
+    synchronize) after 2 warm-up epochs, and edges_per_s (real edges x 7
+    layers / step time, bench.py:160-161); then 3 more steps under the
+    profiler for the idle share and the top kernels."""
+    from gnn_tumor_seg_tpu_torch.train.gnn_trainer import GNNTrainer
+
+    out = {}
+    for precision in ("exact", "fast"):
+        trainer = GNNTrainer("GSpool", _train_hp(), dataset, seed=SEED,
+                             precision=precision, device="cuda")
+        for _ in range(2):
+            trainer.run_epoch()
+        secs, eps = [], []
+        for _ in range(steps):
+            trainer.run_epoch()
+            secs.append(trainer.last_epoch_stats["seconds"])
+            eps.append(trainer.last_epoch_stats["edges_per_s"])
+        out[precision] = {"step_ms": statistics.median(secs) * 1e3,
+                          "edges_per_s": statistics.median(eps),
+                          "step_ms_all": [round(x * 1e3, 3) for x in secs]}
+        log(f"[train-timing] GSpool [256]*6 {precision} step: median "
+            f"{out[precision]['step_ms']:.3f} ms over {steps} steps "
+            f"{out[precision]['step_ms_all']}, edges_per_s "
+            f"{out[precision]['edges_per_s']:.6g}; card: {card}")
+        out[precision]["profile"] = profile_train_steps(trainer, card)
+    return out
+
+
+def library_bag_inputs(h, nbr, mask):
+    """Inputs of F.embedding_bag for the batched table: rows of all graphs
+    stacked, padded slots naming an extra zero row passed as padding_idx
+    (left out of the reduction; a bag of padding alone gives 0). A
+    yardstick only; the port never calls it."""
+    B, N, F = h.shape
+    offs = (torch.arange(B, device=h.device) * N).view(B, 1, 1)
+    idx = torch.where(mask > 0, nbr + offs, B * N).reshape(B * N, -1).contiguous()
+    weight = torch.cat([h.reshape(B * N, F), h.new_zeros(1, F)])
+    return idx, weight, B * N
+
+
+def phase_train_timing(dataset, card) -> dict:
+    """Per kernel at the flagship batch's own table (B=6, N=8192, D=12,
+    F=20 and 256, f32 and bf16): device ms per launch (CUDA-graph replay),
+    the plain version's, the library yardstick's and the byte bound, plus
+    the train step. These launches come after the main path's counts were
+    read and are not part of them."""
+    import torch.nn.functional as F_
+
+    from gnn_tumor_seg_tpu_torch.ops.graph import batch_graphs
+    from gnn_tumor_seg_tpu_torch.ops.kernels.max_agg import (
+        max_aggregate, max_aggregate_backward, max_aggregate_backward_plain,
+        max_aggregate_plain)
+    from gnn_tumor_seg_tpu_torch.ops.kernels.sum_agg import (
+        sum_aggregate, sum_aggregate_plain)
+
+    dev = torch.device("cuda")
+    batch = batch_graphs([dataset.get_graph(i) for i in range(len(dataset))]).to(dev)
+    nbr, mask, rslot = batch.nbr, batch.nbr_mask, batch.rslot
+    B, N, D = nbr.shape
+    offs = (torch.arange(B, device=dev) * N).view(B, 1, 1)
+    referenced = int(torch.unique((nbr + offs)[mask > 0]).numel())
+    table_bytes = B * N * D * 4
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        es = torch.empty((), dtype=dtype).element_size()
+        for F in (IN_FEATS, TRAIN_WIDTHS[0]):
+            shape = (B, N, F)
+            h = torch.relu(torch.randn(shape, generator=gen, device=dev)).to(dtype)
+            gout = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            out, arg = max_aggregate(h, nbr, mask, with_arg=True)
+            grad = max_aggregate_backward(gout, arg, nbr, mask, rslot)
+            sums = {m: sum_aggregate(h, nbr, mask, m) for m in (False, True)}
+            idx, weight, pad = library_bag_inputs(h, nbr, mask)
+            ebag = torch.ops.aten._embedding_bag.default
+            offsets = torch.arange(0, idx.numel(), D, device=dev)
+            flat = idx.reshape(-1)
+            lib_out, offset2bag, bag_size, max_idx = ebag(
+                weight, flat, offsets, False, 2, False, None, False, pad)
+            # PyTorch has no bf16 max-mode embedding_bag backward on CUDA
+            lib_bwd = None if dtype == torch.bfloat16 else (
+                lambda: torch.ops.aten._embedding_bag_dense_backward.default(
+                    gout.reshape(B * N, F), flat, offset2bag, bag_size, max_idx,
+                    B * N + 1, False, 2, None, pad))
+            lib_grad = None if lib_bwd is None else lib_bwd()
+            torch.cuda.synchronize()
+            tag = f"flagship batch B={B} N={N} D={D} F={F} {name}"
+            check(torch.equal(_bits(out), _bits(max_aggregate_plain(h, nbr, mask)[0])),
+                  f"max_agg differs from plain ({tag})")
+            check(torch.equal(_bits(grad), _bits(max_aggregate_backward_plain(
+                gout, arg, nbr, mask, rslot))), f"max_agg_bwd differs from plain ({tag})")
+            for m, got in sums.items():
+                check(torch.equal(_bits(got), _bits(sum_aggregate_plain(h, nbr, mask, m))),
+                      f"sum_agg differs from plain ({tag}, mean={m})")
+            check(torch.equal(_bits(lib_out), _bits(out.reshape(B * N, F))),
+                  f"embedding_bag max differs from max_agg ({tag})")
+            lib_err = 0.0 if lib_grad is None else (
+                lib_grad[:B * N].float() - grad.reshape(B * N, F).float()
+            ).abs().max().item()
+            for m in (False, True):
+                bag = F_.embedding_bag(idx, weight, mode="mean" if m else "sum",
+                                       padding_idx=pad)
+                lib_err = max(lib_err, (bag.float() - sums[m].reshape(B * N, F).float()
+                                        ).abs().max().item())
+            log(f"[kernel] bitwise equal to plain at the {tag}: max_agg, "
+                f"max_agg_bwd, sum_agg; library results within {lib_err:.3g}")
+            timings = {
+                "max_agg": (lambda: max_aggregate(h, nbr, mask, with_arg=True),
+                            lambda: max_aggregate_plain(h, nbr, mask),
+                            lambda: ebag(weight, flat, offsets, False, 2, False,
+                                         None, False, pad),
+                            referenced * F * es + 2 * table_bytes
+                            + B * N * F * (es + 1)),
+                "max_agg_bwd": (
+                    lambda: max_aggregate_backward(gout, arg, nbr, mask, rslot),
+                    lambda: max_aggregate_backward_plain(gout, arg, nbr, mask, rslot),
+                    lib_bwd,
+                    referenced * F * (es + 1) + 3 * table_bytes + B * N * F * es),
+                "sum_agg": (lambda: sum_aggregate(h, nbr, mask, False),
+                            lambda: sum_aggregate_plain(h, nbr, mask, False),
+                            lambda: F_.embedding_bag(idx, weight, mode="sum",
+                                                     padding_idx=pad),
+                            referenced * F * es + 2 * table_bytes + B * N * F * es),
+                "sum_agg_mean": (lambda: sum_aggregate(h, nbr, mask, True),
+                                 lambda: sum_aggregate_plain(h, nbr, mask, True),
+                                 lambda: F_.embedding_bag(idx, weight, mode="mean",
+                                                          padding_idx=pad),
+                                 referenced * F * es + 2 * table_bytes
+                                 + B * N * F * es),
+            }
+            for kname, (kern, plain, lib, nbytes) in timings.items():
+                row = {"ms": time_device(kern), "plain_ms": time_device(plain, inner=5),
+                       "library_ms": None if lib is None else time_device(lib),
+                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+                rows[(kname, name, F)] = row
+                log(f"[train-timing] {kname} {name} F={F}: device "
+                    f"{row['ms']:.5f} ms, bound {row['bound_ms']:.5f} ms "
+                    f"({nbytes} B), plain {row['plain_ms']:.5f} ms, library "
+                    f"{row['library_ms']} ms; card: {card}")
+            del h, gout, out, arg, grad, sums, idx, weight, lib_out, lib_grad
+    return {"rows": rows, "referenced_rows": referenced, "B": B, "N": N, "D": D}
+
+
+# ---------------------------------------------------------------------------
+
+
+def per_step(rows, parts, dtype="float32") -> dict:
+    """Sum the timing rows of `parts` ((kernel, F, launches) triples) into
+    one step's totals."""
+    out = {}
+    for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        vals = [(n, rows[(kern, dtype, F)][k]) for kern, F, n in parts]
+        out[k] = (None if any(v is None for _, v in vals)
+                  else sum(n * v for n, v in vals))
+    return out
 
 
 def main() -> int:
@@ -567,17 +1096,42 @@ def main() -> int:
     env = phase_environment()
     card = env["card"]
     phase_build()
-    worst = phase_kernel_check(torch.device("cuda"))
+    dev = torch.device("cuda")
+    worst = phase_kernel_check(dev)
+    train_worst = phase_train_kernel_check(dev)
     serve = phase_serve("cuda", card=card)
     timing = phase_timing(serve["graph"], card)
-    worst = max(worst, timing["max_abs_err"])
+    worst = max(worst, timing["max_abs_err"], train_worst["max_agg"])
+    with tempfile.TemporaryDirectory(prefix="gts_smoke_train_") as tmp:
+        train = phase_train(tmp, card)
+        from gnn_tumor_seg_tpu_torch.data.dataset import ImageGraphDataset
+
+        dataset = ImageGraphDataset(train["data_dir"], read_image=False)
+        step = time_train_steps(dataset, card)
+        ttime = phase_train_timing(dataset, card)
+    runs = train["runs"]
+    train_launches = {k: sum(r["counts"][k] for r in runs.values())
+                      for k in ("max_agg", "max_agg_bwd", "sum_agg")}
+    for k, n in train_launches.items():
+        check(n > 0, f"{k} was never launched on the training path")
+    rows = ttime["rows"]
+    wide, narrow = TRAIN_WIDTHS[0], IN_FEATS
+    layers = [(narrow, 1), (wide, len(TRAIN_WIDTHS))]
     f32 = timing["rows"]["float32"]
+    gspool_step = {k: per_step(rows, [(k, F, n) for F, n in layers])
+                   for k in ("max_agg", "max_agg_bwd")}
+    gsmean_parts = [("sum_agg_mean", narrow, 1), ("sum_agg_mean", wide, 6),
+                    ("sum_agg", wide, 6)]
+    gsmean_step = per_step(rows, gsmean_parts)
+    table = f"B={ttime['B']}, N={ttime['N']}, D={ttime['D']}"
     kernels = [{
         "name": "max_agg",
         "route": "cuda",
         "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/max_agg.cu",
         "replaces": "gnn_tumor_seg_tpu/ops/pallas/gather_agg.py:135",
-        "launches": serve["launches"],
+        "launches": serve["launches"] + train_launches["max_agg"],
+        "launches_by_path": {"serve": serve["launches"],
+                             "train": train_launches["max_agg"]},
         "max_abs_err": worst,
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -590,7 +1144,40 @@ def main() -> int:
                 "F.embedding_bag(mode='max')"),
         "eager_ms": f32["eager_ms"],
         "fast_bf16": timing["rows"]["bfloat16"],
+        "train_step_f32_with_arg": gspool_step["max_agg"],
+        "train_step_bf16_with_arg": per_step(rows, [("max_agg", F, n)
+                                                    for F, n in layers], "bfloat16"),
+    }, {
+        "name": "max_agg_bwd",
+        "route": "cuda",
+        "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/max_agg.cu",
+        "replaces": "gnn_tumor_seg_tpu/ops/pallas/gather_agg.py:200",
+        "launches": train_launches["max_agg_bwd"],
+        "max_abs_err": train_worst["max_agg_bwd"],
+        **gspool_step["max_agg_bwd"],
+        "bound_by": "bytes",
+        "per": (f"one GSpool training step, f32: 1 launch at F=20 + 6 at F=256, "
+                f"{table}; library: the backward alone of "
+                "F.embedding_bag(mode='max') (aten._embedding_bag_dense_backward)"),
+        "fast_bf16": per_step(rows, [("max_agg_bwd", F, n) for F, n in layers],
+                              "bfloat16"),
+    }, {
+        "name": "sum_agg",
+        "route": "cuda",
+        "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/sum_agg.cu",
+        "replaces": "gnn_tumor_seg_tpu/ops/pallas/gather_agg.py:68",
+        "launches": train_launches["sum_agg"],
+        "max_abs_err": train_worst["sum_agg"],
+        **gsmean_step,
+        "bound_by": "bytes",
+        "per": (f"one GSmean training step, f32: mean at F=20 + 6 mean at F=256 "
+                f"(forward) + 6 sum at F=256 (backward), {table}; library: "
+                "F.embedding_bag(mode='mean'/'sum', padding_idx)"),
+        "fast_bf16": per_step(rows, gsmean_parts, "bfloat16"),
     }]
+    log("[train] step: " + json.dumps(
+        {mode: {k: v for k, v in row.items() if k != "profile"}
+         for mode, row in step.items()}))
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

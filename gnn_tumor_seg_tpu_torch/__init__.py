@@ -6,6 +6,9 @@ the caller passes device="cpu"; on the CPU every kernel wrapper takes its plain
 PyTorch version. Slice 1 covers the single-MRI serve path
 (cli/predict_single.py): host preprocessing, GSpool forward with the
 max-aggregation kernel (ops/kernels/max_agg.py), and the refinement CNN.
+Slice 2 covers GNN training on one device (cli/train_gnn.py,
+train/gnn_trainer.py) for GSpool, GSmean and GSgcn, with the backward
+kernel of max aggregation and the sum/mean kernel (ops/kernels/sum_agg.py).
 """
 
 __version__ = "0.1.0"

@@ -96,11 +96,7 @@ def load_gnn_from_checkpoint(weight_file: str, device="cuda"):
     the model's device."""
     dev = resolve_device(device)
     leaves, model_type, hp, _ = load_checkpoint(weight_file)
-    if model_type != "GSpool":
-        raise NotImplementedError(
-            f"{model_type} checkpoints need a model the port does not have "
-            "yet (ROADMAP.md); ported: GSpool")
-    model = gnn_from_leaves(leaves, hp, device=dev).eval()
+    model = gnn_from_leaves(leaves, model_type, hp, device=dev).eval()
 
     @torch.inference_mode()
     def forward(graph):

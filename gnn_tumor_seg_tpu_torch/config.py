@@ -1,7 +1,8 @@
 """Hyperparameters and serve constants.
 
 Copies of gnn_tumor_seg_tpu/config.py (HyperParams, hardcoded_hyperparameters,
-DEFAULT_BACKGROUND_NODE_LOGITS) and of the standardization constants of
+random_hyperparameters, DEFAULT_BACKGROUND_NODE_LOGITS) and of the
+standardization constants of
 gnn_tumor_seg_tpu/data/preprocess.py: the port imports nothing of the JAX
 package, and a checkpoint's embedded HyperParams JSON must read the same in
 both packages.
@@ -11,11 +12,15 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import time
 from dataclasses import dataclass, field
+
+import numpy as np
 
 __all__ = [
     "HyperParams",
     "hardcoded_hyperparameters",
+    "random_hyperparameters",
     "DEFAULT_BACKGROUND_NODE_LOGITS",
     "STANDARDIZATION_STATS",
     "DEFAULT_MODALITY_EXTS",
@@ -86,4 +91,44 @@ def hardcoded_hyperparameters(model_type: str) -> HyperParams:
     if model_type == "GAT":
         hp.gat_heads = [4, 4, 3, 3, 4, 4][: len(hp.layer_sizes)]
         hp.gat_residuals = [False, False, True, False, False, True][: len(hp.layer_sizes)]
+    return hp
+
+
+def random_hyperparameters(model_type: str, seed: int | None = None) -> HyperParams:
+    """Random search distributions (`utils/hyperparam_helpers.py:48-72`),
+    with the JAX package's draw order, so one seed gives the same config in
+    both packages. Time-seeded (`time_ns() % 1000`) unless a seed is given,
+    so that concurrent sweep runs differ; epoch counts use the reference's
+    real values, not its leftover debug value of 3."""
+    rng = np.random.RandomState(seed if seed is not None else time.time_ns() % 1000)
+    lr = float(rng.choice([1e-4, 5e-4, 1e-3]))
+    l2 = float(rng.choice([1e-4, 0.0]))
+    if model_type == "CNN":
+        hp = HyperParams(
+            n_epochs=int(rng.choice([50, 100, 150])),
+            in_feats=DEFAULT_CNN_IN_FEATS,
+            lr=lr, w_decay=l2,
+            class_weights=[0.1, float(rng.normal(5, 1)),
+                           float(rng.normal(10, 2)), float(rng.normal(10, 2))],
+            layer_sizes=[16],
+            batch_size=1,
+        )
+    else:
+        n_layers = int(rng.choice([3, 4, 5]))
+        width = int(rng.choice([64, 128, 256]))
+        hp = HyperParams(
+            n_epochs=int(rng.choice([300, 400, 500])),
+            in_feats=DEFAULT_GNN_IN_FEATS,
+            lr=lr, w_decay=l2,
+            class_weights=[0.1, float(rng.normal(1, 0.2)),
+                           float(rng.normal(2, 0.2)), float(rng.normal(2, 0.2))],
+            layer_sizes=[width] * n_layers,
+        )
+    # drawn for every model type: the reference consumes these values
+    # whatever the model (`hyperparam_helpers.py:64-69`), and skipping them
+    # would shift every later draw of a seeded sweep
+    heads = (rng.randint(4, size=len(hp.layer_sizes)) + 3).tolist()
+    residuals = [bool(x) for x in rng.binomial(1, p=0.3, size=len(hp.layer_sizes))]
+    if model_type == "GAT":
+        hp.gat_heads, hp.gat_residuals = heads, residuals
     return hp

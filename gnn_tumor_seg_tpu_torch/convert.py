@@ -7,8 +7,10 @@ with DHWIO weights; the port's are OIDHW.
 
 The flat leaf order is JAX's pytree flatten order (list index first, then
 dict keys sorted): for a pool layer b_pool, bias, w_neigh, w_pool, w_self;
-for the CNN conv0/b, conv0/w, conv1/b, conv1/w. train/checkpoint.py stores
-leaves in that order, so one checkpoint file loads in both packages.
+for a mean layer bias, w_neigh, w_self; for a gcn layer bias, w_neigh
+(models/sage.py:LAYER_KEYS); for the CNN conv0/b, conv0/w, conv1/b, conv1/w.
+train/checkpoint.py stores leaves in that order, so one checkpoint file
+loads in both packages.
 """
 
 from __future__ import annotations
@@ -17,12 +19,11 @@ import numpy as np
 import torch
 
 from .models.refine_cnn import CnnRefinementNet
-from .models.sage import GraphSage
+from .models.sage import LAYER_KEYS, GraphSage
 
 __all__ = ["gnn_params_from_jax", "gnn_params_to_jax", "cnn_params_from_jax",
-           "cnn_params_to_jax", "POOL_LAYER_KEYS", "CNN_KEYS"]
-
-POOL_LAYER_KEYS = ("b_pool", "bias", "w_neigh", "w_pool", "w_self")
+           "cnn_params_to_jax", "aggregator_of", "load_gnn_params",
+           "CNN_KEYS"]
 CNN_KEYS = (("conv0", "b"), ("conv0", "w"), ("conv1", "b"), ("conv1", "w"))
 _CNN_ATTRS = {("conv0", "w"): "w0", ("conv0", "b"): "b0",
               ("conv1", "w"): "w1", ("conv1", "b"): "b1"}
@@ -39,27 +40,48 @@ def _copy_into(param: torch.nn.Parameter, value, name: str) -> None:
         param.copy_(value)
 
 
+def aggregator_of(params: list[dict]) -> str:
+    """The SAGE aggregator whose layer keys `params` (the JAX GraphSage
+    parameter list) carry."""
+    for agg, keys in LAYER_KEYS.items():
+        if all(set(lp) == set(keys) for lp in params):
+            return agg
+    raise ValueError(f"layer keys {[sorted(lp) for lp in params]} are not "
+                     f"those of one SAGE aggregator: {LAYER_KEYS}")
+
+
 def gnn_params_from_jax(params: list[dict], dropout: float = 0.0,
                         device="cpu") -> GraphSage:
-    """A GraphSage-pool holding the JAX GraphSage parameters `params` (list
-    of per-layer dicts of numpy arrays); widths are read from the shapes."""
-    for i, lp in enumerate(params):
-        if set(lp) != set(POOL_LAYER_KEYS):
-            raise ValueError(f"layer {i}: keys {sorted(lp)} are not a pool "
-                             f"layer's {list(POOL_LAYER_KEYS)}")
-    dims = [np.shape(params[0]["w_self"])[0]] + [
-        np.shape(lp["w_self"])[1] for lp in params]
-    model = GraphSage(dims[0], dims[1:-1], dims[-1], dropout)
-    for i, (layer, lp) in enumerate(zip(model.layers, params)):
-        for key in POOL_LAYER_KEYS:
-            _copy_into(getattr(layer, key), lp[key], f"layer {i} {key}")
+    """A GraphSage holding the JAX GraphSage parameters `params` (list of
+    per-layer dicts of numpy arrays); the aggregator is read from the keys
+    and the widths from the shapes."""
+    agg = aggregator_of(params)
+    dims = [np.shape(params[0]["w_neigh"])[0]] + [
+        np.shape(lp["w_neigh"])[1] for lp in params]
+    model = GraphSage(dims[0], dims[1:-1], dims[-1], dropout, aggregator=agg)
+    load_gnn_params(model, params)
     return model.to(device)
+
+
+def load_gnn_params(model: GraphSage, params: list[dict]) -> None:
+    """Copy the JAX GraphSage parameters `params` into `model`'s own
+    parameters in place (an optimizer holding them keeps them)."""
+    keys = LAYER_KEYS[model.aggregator]
+    if len(params) != model.num_layers:
+        raise ValueError(f"{len(params)} layers of parameters for a model of "
+                         f"{model.num_layers}")
+    for i, (layer, lp) in enumerate(zip(model.layers, params)):
+        if set(lp) != set(keys):
+            raise ValueError(f"layer {i}: keys {sorted(lp)} are not a "
+                             f"{model.aggregator} layer's {list(keys)}")
+        for key in keys:
+            _copy_into(getattr(layer, key), lp[key], f"layer {i} {key}")
 
 
 def gnn_params_to_jax(model: GraphSage) -> list[dict]:
     """The JAX GraphSage parameter list (numpy float32) of `model`."""
     return [{key: getattr(layer, key).detach().cpu().numpy()
-             for key in POOL_LAYER_KEYS} for layer in model.layers]
+             for key in LAYER_KEYS[model.aggregator]} for layer in model.layers]
 
 
 def cnn_params_from_jax(params: dict, device="cpu") -> CnnRefinementNet:

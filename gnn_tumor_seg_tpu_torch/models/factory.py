@@ -1,6 +1,7 @@
 """Model factory (counterpart of gnn_tumor_seg_tpu/models/factory.py).
 
-GSpool is ported; GSgcn, GSmean and GAT wait for their kernels (ROADMAP.md).
+GSpool, GSmean and GSgcn (GraphSAGE with the pool, mean and gcn aggregator)
+are ported; GAT waits for its kernels (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -9,9 +10,10 @@ import torch
 
 from .sage import GraphSage
 
-__all__ = ["init_graph_net", "GRAPH_MODEL_TYPES"]
+__all__ = ["init_graph_net", "GRAPH_MODEL_TYPES", "SAGE_AGGREGATORS"]
 
-GRAPH_MODEL_TYPES = ("GSpool",)
+GRAPH_MODEL_TYPES = ("GSpool", "GSmean", "GSgcn")
+SAGE_AGGREGATORS = {"GSpool": "pool", "GSmean": "mean", "GSgcn": "gcn"}
 
 
 def init_graph_net(model_type: str, hp,
@@ -19,7 +21,7 @@ def init_graph_net(model_type: str, hp,
     """hp needs in_feats, out_classes, layer_sizes and feature_dropout.
     Returns a GraphSage on the CPU with parameters drawn from `generator`;
     move it with `.to(device)`."""
-    if model_type != "GSpool":
+    if model_type not in SAGE_AGGREGATORS:
         raise NotImplementedError(
             f"model type {model_type!r} is not ported yet (ROADMAP.md, "
             f"modules to port); ported: {GRAPH_MODEL_TYPES}")
@@ -29,4 +31,5 @@ def init_graph_net(model_type: str, hp,
         n_classes=hp.out_classes,
         dropout=getattr(hp, "feature_dropout", 0) or 0,
         generator=generator,
+        aggregator=SAGE_AGGREGATORS[model_type],
     )

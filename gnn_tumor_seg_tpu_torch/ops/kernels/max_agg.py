@@ -1,59 +1,57 @@
-"""Max aggregation with first-winner slots: the Hopper kernel and its plain version.
+"""Max aggregation with first-winner slots and its backward: the Hopper
+kernels and their plain versions.
 
 Replaces gnn_tumor_seg_tpu/ops/pallas/gather_agg.py:135 `_max_kernel`
-(launched by `tiled_aggregate_max_fwd`, gather_agg.py:166). The kernel is
-CUDA C++ (csrc/max_agg.cu), built for sm_90a with nvcc into a shared library
-with a plain C interface at first use and loaded with ctypes; its header says
-what bounds it (bytes) and what the design does about that.
+(launched by `tiled_aggregate_max_fwd`, gather_agg.py:166) and
+gather_agg.py:200 `_max_bwd_kernel` (launched by `tiled_max_backward`,
+gather_agg.py:238). Both kernels are CUDA C++ (csrc/max_agg.cu), built for
+sm_90a with nvcc into a shared library with a plain C interface at first use
+and loaded with ctypes; its header says what bounds them (bytes) and what the
+design does about that.
 
-`max_aggregate` launches the kernel on a CUDA tensor and takes the plain
-version, `max_aggregate_plain`, only for a CPU tensor. On a CUDA tensor it
-launches the kernel or raises; it never falls back. `max_aggregate.launches`
-counts kernel launches and nothing else.
+`max_aggregate` and `max_aggregate_backward` launch their kernel on a CUDA
+tensor and take the plain version only for a CPU tensor; on a CUDA tensor
+they launch the kernel or raise, never fall back. Each counts its kernel
+launches in `.launches` and nothing else. `MaxAggregate` is the
+torch.autograd.Function around both: its forward stores the uint8 winner
+slots, its backward routes the gradient through them and the graph's `rslot`
+table (ops/graph.py), as the JAX package's custom VJPs do
+(gather_agg.py:278-307, ops/aggregate.py:112-182).
 """
 
 from __future__ import annotations
 
-import ctypes
 import os
 
 import torch
 
-from ...build import build_library
+from ...build import build_cuda_library, check_launch
 
-__all__ = ["max_aggregate", "max_aggregate_plain", "build", "nvcc_path"]
+__all__ = ["max_aggregate", "max_aggregate_plain", "max_aggregate_backward",
+           "max_aggregate_backward_plain", "MaxAggregate", "build"]
 
 _NEG_LARGE = -1e30
 _MAX_DEGREE = 128
 _SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                        "max_agg.cu")
-_COMMAND = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _LIB = None
-
-
-def nvcc_path() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME) to build "
-                           "the max-aggregation kernel")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
 def build() -> str:
     """Compile (if needed) and load the kernel library; returns nvcc's output
     (with ptxas' register and shared-memory report)."""
     global _LIB
-    path, log = build_library("max_agg", [_SOURCE], [nvcc_path(), *_COMMAND])
-    lib = ctypes.CDLL(path)
+    import ctypes
+
+    lib, log = build_cuda_library("max_agg", _SOURCE)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.gts_max_agg_f32, lib.gts_max_agg_bf16):
         fn.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
         fn.restype = i32
-    lib.gts_cuda_error_string.argtypes = [i32]
-    lib.gts_cuda_error_string.restype = ctypes.c_char_p
+    for fn in (lib.gts_max_agg_bwd_f32, lib.gts_max_agg_bwd_bf16):
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp]
+        fn.restype = i32
     _LIB = lib
     return log
 
@@ -83,42 +81,66 @@ def max_aggregate_plain(h: torch.Tensor, nbr: torch.Tensor,
     return out, arg.to(torch.uint8)
 
 
-def _check(h, nbr, nbr_mask):
-    if h.dim() != 3 or nbr.dim() != 3 or nbr.shape != nbr_mask.shape \
-            or nbr.shape[:2] != h.shape[:2]:
-        raise ValueError(f"expected h [B,N,F] and nbr, nbr_mask [B,N,D]; got "
-                         f"{tuple(h.shape)}, {tuple(nbr.shape)}, "
+def max_aggregate_backward_plain(gout: torch.Tensor, arg: torch.Tensor,
+                                 nbr: torch.Tensor, nbr_mask: torch.Tensor,
+                                 rslot: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the backward: gout [B,N,F], arg uint8 [B,N,F]
+    (the forward's winner slots), nbr/nbr_mask/rslot [B,N,D] -> grad_h
+    [B,N,F] in gout's dtype:
+
+      grad[u,f] = sum_d [mask[u,d] > 0 and arg[v,f] == rslot[u,d]] gout[v,f],
+      v = nbr[u,d],
+
+    accumulated in float32 in slot order, as the kernel does, so the two are
+    bitwise equal."""
+    B, N, D = nbr.shape
+    F = gout.shape[-1]
+    acc = torch.zeros(gout.shape, dtype=torch.float32, device=gout.device)
+    zero = torch.zeros((), dtype=torch.float32, device=gout.device)
+    for d in range(D):
+        idx = nbr[:, :, d].long()[..., None].expand(B, N, F)
+        g_v = torch.gather(gout, 1, idx).float()
+        a_v = torch.gather(arg, 1, idx)
+        hit = ((a_v.int() == rslot[:, :, d, None].int())
+               & (nbr_mask[:, :, d, None] > 0))
+        acc = acc + torch.where(hit, g_v, zero)
+    return acc.to(gout.dtype)
+
+
+def _check_table(ref: torch.Tensor, nbr, nbr_mask, name: str) -> None:
+    if ref.dim() != 3 or nbr.dim() != 3 or nbr.shape != nbr_mask.shape \
+            or nbr.shape[:2] != ref.shape[:2]:
+        raise ValueError(f"expected {name} [B,N,F] and nbr, nbr_mask [B,N,D]; "
+                         f"got {tuple(ref.shape)}, {tuple(nbr.shape)}, "
                          f"{tuple(nbr_mask.shape)}")
-    if h.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"h must be float32 or bfloat16, got {h.dtype}")
+    if ref.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} must be float32 or bfloat16, got {ref.dtype}")
     if nbr.dtype != torch.int32 or nbr_mask.dtype != torch.float32:
         raise TypeError(f"nbr must be int32 and nbr_mask float32, got "
                         f"{nbr.dtype}, {nbr_mask.dtype}")
-    if h.device.type != "cuda" or not (nbr.device == nbr_mask.device == h.device):
-        raise ValueError("h, nbr and nbr_mask must be on one CUDA device")
-    if not (h.is_contiguous() and nbr.is_contiguous()
+    if ref.device.type != "cuda" or not (nbr.device == nbr_mask.device
+                                         == ref.device):
+        raise ValueError(f"{name}, nbr and nbr_mask must be on one CUDA device")
+    if not (ref.is_contiguous() and nbr.is_contiguous()
             and nbr_mask.is_contiguous()):
-        raise ValueError("h, nbr and nbr_mask must be contiguous")
+        raise ValueError(f"{name}, nbr and nbr_mask must be contiguous")
     if not 1 <= nbr.shape[2] <= _MAX_DEGREE:
         raise ValueError(f"degree padding must be in [1, {_MAX_DEGREE}], "
                          f"got {nbr.shape[2]}")
-    if torch.is_grad_enabled() and h.requires_grad:
-        raise NotImplementedError(
-            "the max-aggregation kernel has no backward yet (the training "
-            "slice ports gather_agg._max_bwd_kernel; see ROADMAP.md)")
 
 
 def max_aggregate(h: torch.Tensor, nbr: torch.Tensor, nbr_mask: torch.Tensor,
                   with_arg: bool = True):
     """(out, arg) as max_aggregate_plain; arg is None when with_arg is False
     (the serve path, which discards it: the kernel then skips its store).
+    Not differentiable itself: training goes through MaxAggregate.
 
     nbr's real slots must index rows of h (ops/graph.ell_from_edges checks
     this when it builds the table)."""
     if h.device.type == "cpu":
         out, arg = max_aggregate_plain(h, nbr, nbr_mask)
         return out, (arg if with_arg else None)
-    _check(h, nbr, nbr_mask)
+    _check_table(h, nbr, nbr_mask, "h")
     if _LIB is None:
         build()
     B, N, F = h.shape
@@ -133,11 +155,66 @@ def max_aggregate(h: torch.Tensor, nbr: torch.Tensor, nbr_mask: torch.Tensor,
         rc = fn(h.data_ptr(), nbr.data_ptr(), nbr_mask.data_ptr(),
                 out.data_ptr(), 0 if arg is None else arg.data_ptr(),
                 B, N, D, F, int(with_arg), stream)
-    if rc != 0:
-        raise RuntimeError(f"max_agg kernel launch failed: "
-                           f"{_LIB.gts_cuda_error_string(rc).decode()}")
+    check_launch(_LIB, rc, "max_agg")
     max_aggregate.launches += 1
     return out, arg
 
 
 max_aggregate.launches = 0
+
+
+def max_aggregate_backward(gout: torch.Tensor, arg: torch.Tensor,
+                           nbr: torch.Tensor, nbr_mask: torch.Tensor,
+                           rslot: torch.Tensor) -> torch.Tensor:
+    """grad_h as max_aggregate_backward_plain. `rslot` must be the table's
+    reciprocal slots (ops/graph.reciprocal_slots, which checks that the table
+    is symmetric and deduplicated)."""
+    if gout.device.type == "cpu":
+        return max_aggregate_backward_plain(gout, arg, nbr, nbr_mask, rslot)
+    _check_table(gout, nbr, nbr_mask, "gout")
+    if arg.shape != gout.shape or arg.dtype != torch.uint8 \
+            or arg.device != gout.device or not arg.is_contiguous():
+        raise ValueError("arg must be a contiguous uint8 tensor shaped and "
+                         "placed like gout")
+    if rslot.shape != nbr.shape or rslot.dtype != torch.int32 \
+            or rslot.device != gout.device or not rslot.is_contiguous():
+        raise ValueError("rslot must be a contiguous int32 tensor shaped and "
+                         "placed like nbr")
+    if _LIB is None:
+        build()
+    B, N, F = gout.shape
+    D = nbr.shape[2]
+    grad = torch.empty_like(gout)
+    fn = (_LIB.gts_max_agg_bwd_f32 if gout.dtype == torch.float32
+          else _LIB.gts_max_agg_bwd_bf16)
+    with torch.cuda.device(gout.device):
+        stream = torch.cuda.current_stream(gout.device).cuda_stream
+        rc = fn(gout.data_ptr(), arg.data_ptr(), nbr.data_ptr(),
+                nbr_mask.data_ptr(), rslot.data_ptr(), grad.data_ptr(),
+                B, N, D, F, stream)
+    check_launch(_LIB, rc, "max_agg_bwd")
+    max_aggregate_backward.launches += 1
+    return grad
+
+
+max_aggregate_backward.launches = 0
+
+
+class MaxAggregate(torch.autograd.Function):
+    """out = max over each row's real neighbour slots (0 for a row without
+    one); the gradient goes to the first slot that attains the max, the
+    subgradient of scatter-max backends (DGL, torch) and of the JAX package."""
+
+    @staticmethod
+    def forward(ctx, h, nbr, nbr_mask, rslot):
+        out, arg = max_aggregate(h, nbr, nbr_mask, with_arg=True)
+        ctx.save_for_backward(arg, nbr, nbr_mask, rslot)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gout):
+        arg, nbr, nbr_mask, rslot = ctx.saved_tensors
+        grad = max_aggregate_backward(gout.contiguous(), arg, nbr, nbr_mask,
+                                      rslot)
+        return grad, None, None, None

@@ -2,10 +2,12 @@
 (counterpart of gnn_tumor_seg_tpu/train/checkpoint.py).
 
 Format: one .npz holding the parameter leaves as `p/{i}` in JAX's pytree
-flatten order (convert.py) plus a `__manifest__` JSON (model type,
-HyperParams, leaf count). The JAX loader rebuilds its tree from a template
-and reads only `n_params` of the manifest, so a checkpoint written here loads
-there, and the reverse.
+flatten order (convert.py), optionally the optimizer state's leaves as
+`o/{i}` in optax's flatten order (train/optim.py), plus a `__manifest__`
+JSON (model type, HyperParams, leaf counts `n_params` and `n_opt`, and
+`extra`, where the trainer records the epoch). The JAX loaders rebuild their
+trees from templates and read only the counts of the manifest, so a
+checkpoint written here loads there, and the reverse.
 """
 
 from __future__ import annotations
@@ -17,23 +19,23 @@ import tempfile
 import numpy as np
 
 from ..config import HyperParams
-from ..convert import (CNN_KEYS, POOL_LAYER_KEYS, cnn_params_from_jax,
-                       cnn_params_to_jax, gnn_params_from_jax,
-                       gnn_params_to_jax)
+from ..convert import (CNN_KEYS, cnn_params_from_jax, cnn_params_to_jax,
+                       gnn_params_from_jax)
+from ..models.factory import GRAPH_MODEL_TYPES, SAGE_AGGREGATORS
 from ..models.refine_cnn import CnnRefinementNet
-from ..models.sage import GraphSage
+from ..models.sage import LAYER_KEYS, GraphSage
 
-__all__ = ["save_checkpoint", "load_checkpoint", "gnn_from_leaves",
-           "cnn_from_leaves"]
+__all__ = ["save_checkpoint", "load_checkpoint", "load_opt_state",
+           "gnn_from_leaves", "cnn_from_leaves"]
 
 _MANIFEST_KEY = "__manifest__"
 
 
 def _leaves(model) -> tuple[list[np.ndarray], str]:
     if isinstance(model, GraphSage):
-        params = gnn_params_to_jax(model)
-        return ([lp[k] for lp in params for k in POOL_LAYER_KEYS],
-                f"list of {len(params)} dicts {list(POOL_LAYER_KEYS)}")
+        leaves = [p.detach().cpu().numpy() for p in model.jax_parameters()]
+        return (leaves, f"list of {model.num_layers} dicts "
+                        f"{list(LAYER_KEYS[model.aggregator])}")
     if isinstance(model, CnnRefinementNet):
         params = cnn_params_to_jax(model)
         return ([params[a][b] for a, b in CNN_KEYS],
@@ -41,8 +43,11 @@ def _leaves(model) -> tuple[list[np.ndarray], str]:
     raise TypeError(f"cannot checkpoint a {type(model).__name__}")
 
 
-def save_checkpoint(path: str, model, model_type: str, hp: HyperParams) -> None:
-    """Write `model` (a GraphSage or CnnRefinementNet) with its config;
+def save_checkpoint(path: str, model, model_type: str, hp: HyperParams,
+                    opt_state: list[np.ndarray] | None = None,
+                    extra: dict | None = None) -> None:
+    """Write `model` (a GraphSage or CnnRefinementNet) with its config and,
+    when given, the optimizer state's leaves (train/optim.opt_state_leaves);
     atomic (temporary file renamed into place)."""
     leaves, treedef = _leaves(model)
     manifest = {
@@ -50,10 +55,14 @@ def save_checkpoint(path: str, model, model_type: str, hp: HyperParams) -> None:
         "hyperparams": json.loads(hp.to_json()),
         "treedef": treedef,
         "n_params": len(leaves),
-        "extra": {},
+        "extra": extra or {},
         "format_version": 1,
     }
     payload = {f"p/{i}": np.asarray(v, np.float32) for i, v in enumerate(leaves)}
+    if opt_state is not None:
+        payload.update({f"o/{i}": np.asarray(v) for i, v in enumerate(opt_state)})
+        manifest["n_opt"] = len(opt_state)
+        manifest["opt_treedef"] = "optax inject_hyperparams(adamw) state leaves"
     payload[_MANIFEST_KEY] = np.frombuffer(json.dumps(manifest).encode(),
                                            dtype=np.uint8)
     d = os.path.dirname(os.path.abspath(path))
@@ -77,14 +86,31 @@ def load_checkpoint(path: str):
     return leaves, manifest["model_type"], hp, manifest
 
 
-def gnn_from_leaves(leaves: list[np.ndarray], hp: HyperParams,
+def load_opt_state(path: str) -> list[np.ndarray] | None:
+    """The optimizer state's leaves saved beside the parameters, or None if
+    the checkpoint was saved without them."""
+    with np.load(path) as z:
+        manifest = json.loads(bytes(z[_MANIFEST_KEY].tobytes()).decode())
+        n_opt = manifest.get("n_opt")
+        if not n_opt:
+            return None
+        return [z[f"o/{i}"] for i in range(n_opt)]
+
+
+def gnn_from_leaves(leaves: list[np.ndarray], model_type: str, hp: HyperParams,
                     device="cpu") -> GraphSage:
-    """A GraphSage-pool from checkpoint leaves (JAX flatten order)."""
-    k = len(POOL_LAYER_KEYS)
+    """A GraphSage of `model_type` from checkpoint leaves (JAX flatten
+    order)."""
+    if model_type not in SAGE_AGGREGATORS:
+        raise NotImplementedError(
+            f"{model_type} checkpoints need a model the port does not have "
+            f"yet (ROADMAP.md); ported: {GRAPH_MODEL_TYPES}")
+    keys = LAYER_KEYS[SAGE_AGGREGATORS[model_type]]
+    k = len(keys)
     if len(leaves) % k:
         raise ValueError(f"{len(leaves)} leaves are not a whole number of "
-                         f"pool layers ({k} leaves each)")
-    params = [dict(zip(POOL_LAYER_KEYS, leaves[i:i + k]))
+                         f"{model_type} layers ({k} leaves each)")
+    params = [dict(zip(keys, leaves[i:i + k]))
               for i in range(0, len(leaves), k)]
     return gnn_params_from_jax(params, dropout=hp.feature_dropout or 0.0,
                                device=device)

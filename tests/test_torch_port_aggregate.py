@@ -10,7 +10,8 @@ Tolerances:
     tie-free inputs.
 
 The CUDA wrapper's kernel path needs a card; here every wrapper takes its
-plain version because its tensors lie on the CPU.
+plain version because its tensors lie on the CPU. The gradients of the
+aggregations are tested in tests/test_torch_port_train_agg.py.
 """
 
 import jax.numpy as jnp
@@ -115,8 +116,9 @@ def test_wrapper_takes_plain_version_on_cpu():
 @pytest.mark.parametrize("op", ["sum", "mean"])
 def test_sum_mean_plain_on_cpu_and_refused_off_it(op):
     """sum/mean: plain torch on the CPU, equal to the JAX dense path within
-    f32 summation-order rounding (rtol 1e-6); off the CPU they raise until
-    their kernel is ported."""
+    f32 summation-order rounding (rtol 1e-6); off the CPU the wrapper
+    launches its CUDA kernel (tests/test_torch_port_train_agg.py,
+    chip_smoke.py) and refuses any other device."""
     rng = np.random.default_rng(3)
     nbr, mask = _tables(rng)
     h = rng.normal(size=(2, 128, 9)).astype(np.float32)
@@ -125,7 +127,7 @@ def test_sum_mean_plain_on_cpu_and_refused_off_it(op):
     got = aggregate_neighbors(torch.from_numpy(h), torch.from_numpy(nbr),
                               torch.from_numpy(mask), op).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="_sum_kernel"):
+    with pytest.raises(ValueError, match="one CUDA device"):
         aggregate_neighbors(torch.empty(2, 128, 9, device="meta"),
                             torch.empty(2, 128, 12, dtype=torch.int32,
                                         device="meta"),

@@ -1,8 +1,10 @@
 """The PyTorch port imports neither JAX nor any module of the JAX package.
 
-Every module of gnn_tumor_seg_tpu_torch is imported in a fresh interpreter,
-which then must hold no `jax` and no `gnn_tumor_seg_tpu` module. Importing
-must also build nothing: the kernels are compiled at first use.
+Every module of gnn_tumor_seg_tpu_torch is imported in a fresh interpreter
+in which importing `jax` or `gnn_tumor_seg_tpu` fails, and one CPU training
+epoch and evaluation run there; the interpreter must then hold no `jax` and
+no `gnn_tumor_seg_tpu` module. Importing must also build nothing: the
+kernels are compiled at first use.
 """
 
 import os
@@ -12,11 +14,30 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
-import importlib, json, pkgutil, sys
+import importlib, importlib.abc, json, pkgutil, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    # any import of jax or of the JAX package fails, lazy ones included
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "gnn_tumor_seg_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
 import gnn_tumor_seg_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+# one CPU training epoch and an evaluation, so the imports made inside
+# functions on the training path run too
+from gnn_tumor_seg_tpu_torch.config import HyperParams
+from gnn_tumor_seg_tpu_torch.data.synthetic import SyntheticGraphDataset
+from gnn_tumor_seg_tpu_torch.train.gnn_trainer import GNNTrainer
+data = SyntheticGraphDataset(n_samples=2, grid=3, seed=0)
+trainer = GNNTrainer("GSpool", HyperParams(layer_sizes=[4], batch_size=2), data,
+                     device="cpu")
+trainer.run_epoch()
+trainer.evaluate(data)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "gnn_tumor_seg_tpu"
              or m.startswith("gnn_tumor_seg_tpu."))
@@ -36,9 +57,20 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert result["bad"] == []
     expected = {
         "gnn_tumor_seg_tpu_torch.cli.predict_single",
+        "gnn_tumor_seg_tpu_torch.cli.train_gnn",
         "gnn_tumor_seg_tpu_torch.ops.kernels.max_agg",
+        "gnn_tumor_seg_tpu_torch.ops.kernels.sum_agg",
         "gnn_tumor_seg_tpu_torch.data.native",
+        "gnn_tumor_seg_tpu_torch.data.cache",
+        "gnn_tumor_seg_tpu_torch.data.dataset",
+        "gnn_tumor_seg_tpu_torch.data.store",
+        "gnn_tumor_seg_tpu_torch.data.synthetic",
+        "gnn_tumor_seg_tpu_torch.evaluation",
         "gnn_tumor_seg_tpu_torch.train.checkpoint",
+        "gnn_tumor_seg_tpu_torch.train.folds",
+        "gnn_tumor_seg_tpu_torch.train.gnn_trainer",
+        "gnn_tumor_seg_tpu_torch.train.losses",
+        "gnn_tumor_seg_tpu_torch.train.optim",
         "gnn_tumor_seg_tpu_torch.convert",
     }
     assert expected <= set(result["modules"])

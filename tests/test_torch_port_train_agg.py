@@ -1,0 +1,169 @@
+"""Aggregation forward and backward for training: the port's plain versions,
+through its torch.autograd.Functions on the CPU, against the JAX package.
+
+Tolerances:
+  * against the JAX dense path (ops/aggregate.py, impl="dense", whose custom
+    VJP `_agg_symmetric` is the scatter-free gather of a symmetric table):
+    rtol/atol 1e-6, float32 sums in another order;
+  * against the Pallas kernels in interpret mode (impl="pallas": for max
+    `tiled_aggregate_max_fwd` and `tiled_max_backward`, for sum/mean
+    `tiled_aggregate`, which is also their VJP): rtol/atol 1e-4; their
+    exact mode carries each gathered value as two bf16 halves (~2**-16
+    relative), as tests/test_pallas_agg.py allows.
+Inputs: symmetric, deduplicated tables with zero-degree rows, D=12 and 16;
+max runs on values in quarter steps, so neighbours tie often and every
+value is exact in bf16 (the Pallas kernel then picks the same winners).
+The kernels themselves are held bitwise to these plain versions on the card
+(chip_smoke.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gnn_tumor_seg_tpu.ops.aggregate import aggregate_neighbors as jax_aggregate
+from gnn_tumor_seg_tpu.ops.pallas.tiling import build_tiled_aux
+from gnn_tumor_seg_tpu_torch.ops.aggregate import aggregate_neighbors
+from gnn_tumor_seg_tpu_torch.ops.graph import ell_from_edges, reciprocal_slots
+from gnn_tumor_seg_tpu_torch.ops.kernels.max_agg import (
+    max_aggregate_backward, max_aggregate_backward_plain, max_aggregate_plain)
+from gnn_tumor_seg_tpu_torch.ops.kernels.sum_agg import (sum_aggregate,
+                                                         sum_aggregate_plain)
+
+N, N_REAL, B, F = 128, 110, 2, 24
+
+
+def _tables(seed, D):
+    """Random undirected deduplicated graphs, degree <= D, some isolated
+    nodes, padded rows past N_REAL; plus their reciprocal slots."""
+    rng = np.random.default_rng(seed)
+    nbrs, masks = [], []
+    for _ in range(B):
+        live = np.nonzero(rng.random(N_REAL) > 0.1)[0]
+        a, c = rng.choice(live, len(live) * D), rng.choice(live, len(live) * D)
+        pairs = np.unique(np.sort(np.stack([a[a != c], c[a != c]], 1), 1), axis=0)
+        deg = np.zeros(N_REAL, int)
+        keep = []
+        for x, y in pairs[rng.permutation(len(pairs))]:
+            if deg[x] < D and deg[y] < D:
+                deg[x] += 1
+                deg[y] += 1
+                keep.append((x, y))
+        e = np.asarray(keep)
+        nbr, mask = ell_from_edges(N_REAL, np.r_[e[:, 0], e[:, 1]],
+                                   np.r_[e[:, 1], e[:, 0]], n_pad=N, d_pad=D)
+        nbrs.append(nbr)
+        masks.append(mask)
+    nbr, mask = np.stack(nbrs), np.stack(masks)
+    assert (mask.sum(-1)[:, :N_REAL] == 0).any()
+    return nbr, mask, reciprocal_slots(nbr, mask)
+
+
+def _jax_vjp(h, gout, nbr, mask, op, impl, aux=None):
+    out, vjp = jax.vjp(lambda x: jax_aggregate(
+        x, jnp.asarray(nbr), jnp.asarray(mask), op, impl=impl, tiled=aux),
+        jnp.asarray(h))
+    return np.asarray(out), np.asarray(vjp(jnp.asarray(gout))[0])
+
+
+def _port_vjp(h, gout, nbr, mask, rslot, op):
+    x = torch.from_numpy(h).requires_grad_(True)
+    out = aggregate_neighbors(x, torch.from_numpy(nbr), torch.from_numpy(mask),
+                              op, rslot=torch.from_numpy(rslot))
+    out.backward(torch.from_numpy(gout))
+    return out.detach().numpy(), x.grad.numpy()
+
+
+@pytest.mark.parametrize("D", [12, 16])
+@pytest.mark.parametrize("op", ["max", "sum", "mean"])
+def test_forward_and_vjp_match_jax_dense_and_pallas(op, D):
+    nbr, mask, rslot = _tables(D, D)
+    rng = np.random.default_rng(100 + D)
+    h = rng.normal(size=(B, N, F)).astype(np.float32)
+    if op == "max":
+        h = (rng.integers(-6, 6, size=(B, N, F)) / 4.0).astype(np.float32)
+    gout = rng.normal(size=(B, N, F)).astype(np.float32)
+    out, grad = _port_vjp(h, gout, nbr, mask, rslot, op)
+
+    want_out, want_grad = _jax_vjp(h, gout, nbr, mask, op, "dense")
+    np.testing.assert_allclose(out, want_out, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(grad, want_grad, rtol=1e-6, atol=1e-6)
+
+    aux = build_tiled_aux(nbr, mask, tile=64)
+    assert np.array_equal(np.asarray(aux.rslot), rslot)
+    want_out, want_grad = _jax_vjp(h, gout, nbr, mask, op, "pallas", aux)
+    np.testing.assert_allclose(out, want_out, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(grad, want_grad, rtol=1e-4, atol=1e-4)
+    if op == "max":
+        # ties were resolved: some row's max is attained by two neighbours
+        g = np.take_along_axis(h[:, :, None, :].repeat(D, 2),
+                               nbr[..., None].repeat(F, 3), axis=1)
+        g = np.where(mask[..., None] > 0, g, -np.inf)
+        assert ((g == g.max(2, keepdims=True)).sum(2) > 1).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wrappers_take_plain_versions_on_cpu(dtype):
+    """On a CPU tensor every wrapper takes its plain version and counts no
+    launch; the backward keeps gout's dtype (bf16 in "fast" training)."""
+    nbr, mask, rslot = (torch.from_numpy(a) for a in _tables(7, 12))
+    rng = np.random.default_rng(8)
+    h = torch.from_numpy(rng.normal(size=(B, N, F)).astype(np.float32)).to(dtype)
+    gout = torch.from_numpy(rng.normal(size=(B, N, F)).astype(np.float32)).to(dtype)
+    before = (max_aggregate_backward.launches, sum_aggregate.launches)
+    _, arg = max_aggregate_plain(h, nbr, mask)
+    grad = max_aggregate_backward(gout, arg, nbr, mask, rslot)
+    assert grad.dtype == dtype
+    assert torch.equal(grad, max_aggregate_backward_plain(gout, arg, nbr, mask, rslot))
+    for mean in (False, True):
+        got = sum_aggregate(h, nbr, mask, mean)
+        assert got.dtype == dtype
+        assert torch.equal(got, sum_aggregate_plain(h, nbr, mask, mean))
+    assert (max_aggregate_backward.launches, sum_aggregate.launches) == before
+
+
+def test_max_gradient_needs_rslot():
+    nbr, mask, _ = (torch.from_numpy(a) for a in _tables(9, 12))
+    h = torch.zeros(B, N, F, requires_grad=True)
+    with pytest.raises(ValueError, match="reciprocal slots"):
+        aggregate_neighbors(h, nbr, mask, "max")
+    with torch.no_grad():
+        aggregate_neighbors(h, nbr, mask, "max")     # inference needs none
+
+
+@pytest.mark.parametrize("op", ["sum", "mean"])
+def test_weighted_sum_mean_match_jax_on_cpu_and_refused_on_cuda(op):
+    """Edge-weighted sum/mean: the JAX dense weighted path on the CPU
+    (rtol/atol 1e-6, forward and both gradients); their kernel is not
+    ported, so off the CPU they raise and name it."""
+    nbr, mask, _ = _tables(11, 12)
+    rng = np.random.default_rng(12)
+    h = rng.normal(size=(B, N, F)).astype(np.float32)
+    # symmetric weights (w_uv == w_vu), as the JAX VJP assumes and the
+    # intensity weights of data/graph_build.py are
+    pair = rng.random((B, N, N)).astype(np.float32)
+    pair = pair + pair.transpose(0, 2, 1)
+    w = np.take_along_axis(pair, nbr.astype(np.int64), axis=2) * mask
+    gout = rng.normal(size=(B, N, F)).astype(np.float32)
+    out, vjp = jax.vjp(lambda x, ww: jax_aggregate(
+        x, jnp.asarray(nbr), jnp.asarray(mask), op, impl="dense",
+        edge_weight=ww), jnp.asarray(h), jnp.asarray(w))
+    want_h, want_w = vjp(jnp.asarray(gout))
+    x = torch.from_numpy(h).requires_grad_(True)
+    wt = torch.from_numpy(w).requires_grad_(True)
+    got = aggregate_neighbors(x, torch.from_numpy(nbr), torch.from_numpy(mask),
+                              op, edge_weight=wt)
+    got.backward(torch.from_numpy(gout))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_h),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(want_w),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="_wsum_kernel"):
+        aggregate_neighbors(torch.empty(B, N, F, device="meta"),
+                            torch.empty(B, N, 12, dtype=torch.int32, device="meta"),
+                            torch.empty(B, N, 12, device="meta"), op,
+                            edge_weight=torch.empty(B, N, 12, device="meta"))
