@@ -8,9 +8,11 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases; the first failure ends the run with a non-zero exit and no result:
 
 1. environment: torch, CUDA, triton, nvcc, and the card's name and power limit;
-2. build: the CUDA kernels max_agg.cu (max aggregation and its backward) and
-   sum_agg.cu (nvcc, sm_90a) and the native host library (g++), all from
-   the sources in this checkout, one compiler process each, in parallel;
+2. build: the CUDA kernels max_agg.cu (max aggregation and its backward),
+   sum_agg.cu and fused_gat.cu (GAT's fused attention, its backward and the
+   reverse combine) (nvcc, sm_90a) and the native host library (g++), all
+   from the sources in this checkout, one compiler process each, in
+   parallel;
 3. kernel check: max_agg against its plain PyTorch version on the card at
    random tables of the node bucket 8192 (B=1, D=12/16, F=20/256, f32 and
    bf16, with and without the winner-slot store) and at edge cases; then,
@@ -18,7 +20,13 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    random symmetric tables with ties and rows without a neighbour, max_agg
    with its store, max_agg_bwd and sum_agg (sum and mean). Every result must
    be bitwise equal to the plain version's, and two runs of each backward
-   kernel bitwise equal to each other;
+   kernel bitwise equal to each other. Then the three GAT kernels at the
+   training shapes ((H,F) = (4,256), (3,256), (1,4); tied logits, isolated
+   rows, residual and ELU on and off; f32 and bf16): the forward within
+   GAT_FWD_TOL of its plain version (bf16 output: one ulp beyond it), its
+   sign mask and serve variant bitwise, the backward within GAT_BWD_TOL,
+   the reverse combine bitwise, each backward kernel deterministic; and
+   GAT with attention dropout must refuse to run on the card;
 4. serve: one 240x240x155 synthetic brain written as NIfTI, GSpool [256]*6 and
    CNN 8->16->4 checkpoints from seeded weights in the JAX package's format,
    three requests through cli.predict_single.predict_single_mri under "exact"
@@ -28,29 +36,36 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    aggregation on the card and compared with the kernel path's. One exact
    request with cnn_prep="host" must give the device variant's labels. One
    more exact request runs under torch.profiler for the device's busy time
-   and the kernels that fill it;
+   and the kernels that fill it. Then the GAT cell: the hardcoded GAT with
+   seed-0 weights, one request "exact" and one "fast", each launching the
+   fused forward 5 times, with logits within GAT_LOGIT_TOL (exact) or
+   FAST_LOGIT_TOL (fast) of the plain path's;
 5. serve timing, on the served graph's own neighbour table (N=12288, D=16
    for this brain): max_agg checked bitwise against its plain version once
    more at F=20 and 256 in both dtypes, then its device time (CUDA-graph
    replay), its eager call time, its plain version, the library call
    F.embedding_bag(mode="max") and its byte bound, per request (1 launch at
    F=20, 6 at F=256);
-6. training, the cell train-gspool-7x256-b6: 6 graphs of 7000 nodes (k=10,
-   padded to 8192 x 12) written as a preprocessed data directory, then
-   cli.train_gnn.main on the card: GSpool [256]*6 for 3 epochs in "fast"
-   (the loss must fall) and 1 in "exact", GSmean and GSgcn for 1 epoch each.
-   Each run's kernel launches must be what the model needs (GSpool: 7
-   max_agg with the store and 7 max_agg_bwd per step; GSmean and GSgcn: 7
-   sum_agg forward and 6 backward per step; 7 per evaluation batch); a
-   checkpoint must serve through load_gnn_from_checkpoint; on one batch in
+6. training, the cells train-gspool-7x256-b6 and train-gat-b6: 6 graphs of
+   7000 nodes (k=10, padded to 8192 x 12) written as a preprocessed data
+   directory, then cli.train_gnn.main on the card: GSpool [256]*6 and the
+   hardcoded GAT for 3 epochs each in "fast" (the loss must fall) and 1 in
+   "exact", GSmean and GSgcn for 1 epoch each. Each run's kernel launches
+   must be what the model needs (GSpool: 7 max_agg with the store and 7
+   max_agg_bwd per step; GSmean and GSgcn: 7 sum_agg forward and 6 backward
+   per step; 7 per evaluation batch; GAT: 5 gat_fwd, 5 gat_bwd and 5
+   gat_rev per step and 5 gat_fwd per evaluation batch); the GSpool and GAT
+   checkpoints must serve through load_gnn_from_checkpoint; on one batch in
    "exact" the parameter gradients through the kernels must equal those
-   through the plain aggregation, bitwise, for all three models;
-7. training timing: the flagship step in "exact" and "fast" (median step
-   time, edges_per_s), torch.profiler over 3 more steps of each (device busy
-   and idle share, top kernels), and per kernel at the batch's own table (B=6,
-   N=8192, D=12): device time (CUDA-graph replay), plain version, library
-   yardstick (embedding_bag's sum and mean, the backward alone of its max,
-   and its max forward) and byte bound.
+   through the plain versions, bitwise for the three SAGE models and within
+   GAT_GRAD_TOL for GAT;
+7. training timing: the flagship GSpool step and the GAT step in "exact"
+   and "fast" (median step time, edges_per_s), torch.profiler over 3 more
+   steps of each (device busy and idle share, top kernels), and per kernel
+   at the batch's own table (B=6, N=8192, D=12): device time (CUDA-graph
+   replay), plain version, library yardstick (embedding_bag's sum and mean,
+   the backward alone of its max, and its max forward; for GAT's combine,
+   its weighted sum, a partial yardstick) and byte bound.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; before it, one JSON line lists the kernels. The last line is
@@ -84,6 +99,13 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 # fast mode: bf16 activations through 7 layers; logits of the kernel and the
 # plain path are expected bitwise equal (max is exact), this bounds them anyway
 FAST_LOGIT_TOL = 1e-2
+# GAT, exact: kernel-path logits against the plain path's, relative to the
+# largest logit (the fused forward may differ from its plain version by an
+# ulp of exp per layer; five layers and their matmuls carry it)
+GAT_LOGIT_TOL = 1e-5
+# GAT, exact: parameter gradients through the kernels against the plain
+# path's, relative to each tensor's largest entry
+GAT_GRAD_TOL = 1e-4
 # the training cell, train-gspool-7x256-b6 (bench.py:147-161): 6 graphs of
 # 7000 nodes, k=10, padded to the 8192-node bucket (degree bucket 12)
 TRAIN_BATCH = 6
@@ -166,7 +188,7 @@ def phase_build() -> None:
     """Every library from its source, one compiler process each, all started
     together."""
     from gnn_tumor_seg_tpu_torch.data import native
-    from gnn_tumor_seg_tpu_torch.ops.kernels import max_agg, sum_agg
+    from gnn_tumor_seg_tpu_torch.ops.kernels import fused_gat, max_agg, sum_agg
 
     def timed(fn):
         t = time.perf_counter()
@@ -175,6 +197,7 @@ def phase_build() -> None:
 
     jobs = {"max_agg.cu (nvcc sm_90a)": max_agg.build,
             "sum_agg.cu (nvcc sm_90a)": sum_agg.build,
+            "fused_gat.cu (nvcc sm_90a)": fused_gat.build,
             "gts_native.cc (g++)": native.build}
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(timed, fn) for name, fn in jobs.items()}
@@ -361,6 +384,165 @@ def phase_train_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
     return worst
 
 
+# the fused GAT kernels at the hardcoded GAT's shapes (config.py: heads
+# [4, 4, 3, 3] of 256 features, then the one-head output layer of 4 classes)
+GAT_HEAD_SHAPES = [(4, 256), (3, 256), (1, 4)]
+# kernel against plain, relative to the largest |value| of the result: the
+# forward differs only where CUDA's expf and torch's exp differ (an ulp);
+# the backward's dot over F sums in a shuffle tree, torch in its own order.
+# A bf16 output may round to the neighbouring bf16 value (1 ulp) beyond that.
+GAT_FWD_TOL = 1e-6
+GAT_BWD_TOL = 1e-5
+
+
+def within(got, want, bf16_ulp=False) -> float:
+    """max |got - want| / max |want|, after allowing one bf16 ulp of want
+    per element when asked; the caller compares it with its tolerance."""
+    diff = (got.float() - want.float()).abs()
+    if bf16_ulp:
+        _, e = torch.frexp(want.float())
+        diff = (diff - torch.ldexp(torch.ones_like(diff), e - 8)).clamp_min(0)
+    return diff.max().item() / max(want.float().abs().max().item(), 1e-30)
+
+
+def gat_inputs(rng, B, N, H, F, dtype, dev):
+    """z, el, er, res, bias, gout of one layer. el and er are quarter steps,
+    so many logits tie and many pre-activations are exactly 0 (LeakyReLU'
+    takes the >= 0 branch there)."""
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(dtype)
+    return {"z": t(rng.normal(size=(B, N, H, F))),
+            "el": t(rng.integers(-8, 8, (B, N, H)) / 4.0),
+            "er": t(rng.integers(-8, 8, (B, N, H)) / 4.0),
+            "res": t(rng.normal(size=(B, N, H * F))),
+            "bias": t(rng.normal(size=(H * F,))),
+            "gout": t(rng.normal(size=(B, N, H, F)))}
+
+
+def phase_gat_kernel_check(dev, N=8192, n_real=TRAIN_NODES, B=TRAIN_BATCH) -> dict:
+    """The three fused GAT kernels against their plain versions on the card
+    at the training shapes (B=6, N=8192 of which 7000 real, D=12/16,
+    (H,F) = (4,256), (3,256), (1,4), f32 and bf16), on random symmetric
+    tables with isolated rows, with tied logits, residual and ELU on and
+    off: the forward within GAT_FWD_TOL (bf16 output: 1 ulp beyond it), its
+    sign mask bitwise and the serve variant (no stores) bitwise equal to the
+    training one; the backward within GAT_BWD_TOL; the reverse combine
+    bitwise; two runs of each backward kernel bitwise equal. Returns the
+    largest difference per kernel, relative ("rel") and absolute ("abs")."""
+    from gnn_tumor_seg_tpu_torch.ops.kernels.fused_gat import (
+        fused_gat_backward, fused_gat_backward_plain, fused_gat_forward,
+        fused_gat_forward_plain, gat_reverse_combine, gat_reverse_combine_plain)
+
+    rng = np.random.default_rng(SEED + 2)
+    worst = {"gat_fwd": 0.0, "gat_bwd": 0.0, "gat_rev": 0.0}
+    worst_abs = dict(worst)
+
+    def seen(kernel, *pairs):
+        worst_abs[kernel] = max([worst_abs[kernel]] + [
+            (a.float() - b.float()).abs().max().item() for a, b in pairs])
+    for D in (12, 16):
+        nbr_np, mask_np, rslot_np = symmetric_tables(rng, B, N, D, n_real=n_real)
+        nbr, mask, rslot = (torch.from_numpy(a).to(dev)
+                            for a in (nbr_np, mask_np, rslot_np))
+        for H, F in GAT_HEAD_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = gat_inputs(rng, B, N, H, F, dtype, dev)
+                bf16 = dtype == torch.bfloat16
+                for act, with_res in (("elu", True), (None, False)):
+                    tag = (f"B={B} N={N} D={D} H={H} F={F} {str(dtype)[6:]} "
+                           f"act={act} res={with_res}")
+                    args = (x["z"], x["el"], x["er"], nbr, mask, 0.2, act,
+                            x["res"] if with_res else None, x["bias"])
+                    out, alpha, pos = fused_gat_forward(*args, save=True)
+                    serve, _, _ = fused_gat_forward(*args, save=False)
+                    w_out, w_alpha, w_pos = fused_gat_forward_plain(*args)
+                    err = max(within(out, w_out, bf16), within(alpha, w_alpha))
+                    worst["gat_fwd"] = max(worst["gat_fwd"], err)
+                    seen("gat_fwd", (out, w_out), (alpha, w_alpha))
+                    check(err <= GAT_FWD_TOL,
+                          f"gat_fwd differs from its plain version ({tag}): "
+                          f"{err:.3g} of the largest value")
+                    check(torch.equal(pos, w_pos), f"gat_fwd sign mask differs ({tag})")
+                    check(torch.equal(_bits(serve), _bits(out)),
+                          f"gat_fwd without stores differs from with them ({tag})")
+                gout = x["gout"]
+                d_pre, d_er = fused_gat_backward(gout, x["z"], alpha, pos, nbr, mask)
+                again = fused_gat_backward(gout, x["z"], alpha, pos, nbr, mask)
+                w_pre, w_er = fused_gat_backward_plain(gout, x["z"], alpha, pos,
+                                                       nbr, mask)
+                err = max(within(d_pre, w_pre), within(d_er, w_er))
+                worst["gat_bwd"] = max(worst["gat_bwd"], err)
+                seen("gat_bwd", (d_pre, w_pre), (d_er, w_er))
+                check(err <= GAT_BWD_TOL, f"gat_bwd differs from its plain version "
+                      f"({tag}): {err:.3g} of the largest value")
+                check(torch.equal(d_pre, again[0]) and torch.equal(d_er, again[1]),
+                      f"gat_bwd is not deterministic ({tag})")
+                d_z, d_el = gat_reverse_combine(gout, alpha, d_pre, nbr, mask, rslot)
+                again = gat_reverse_combine(gout, alpha, d_pre, nbr, mask, rslot)
+                w_z, w_el = gat_reverse_combine_plain(gout, alpha, d_pre, nbr, mask,
+                                                      rslot)
+                worst["gat_rev"] = max(worst["gat_rev"], within(d_z, w_z),
+                                       within(d_el, w_el))
+                seen("gat_rev", (d_z, w_z), (d_el, w_el))
+                check(torch.equal(_bits(d_z), _bits(w_z)) and torch.equal(d_el, w_el),
+                      f"gat_rev differs from its plain version ({tag})")
+                check(torch.equal(_bits(d_z), _bits(again[0]))
+                      and torch.equal(d_el, again[1]),
+                      f"gat_rev is not deterministic ({tag})")
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                log(f"[kernel] D={D} H={H} F={F} {str(dtype)[6:]}: gat_fwd within "
+                    f"{GAT_FWD_TOL} (ELU+res and none), sign mask and serve "
+                    f"variant bitwise; gat_bwd within {GAT_BWD_TOL}; gat_rev "
+                    f"bitwise; backward kernels deterministic")
+                del x, out, alpha, pos, serve, w_out, w_alpha, w_pos
+    # edge case: the largest degree bucket, 6 heads (random configurations
+    # draw 3-6), F=2, N not a multiple of any block's rows
+    nbr_np, mask_np, rslot_np = symmetric_tables(rng, 2, 777, 128, n_real=700)
+    nbr, mask, rslot = (torch.from_numpy(a).to(dev)
+                        for a in (nbr_np, mask_np, rslot_np))
+    x = gat_inputs(rng, 2, 777, 6, 2, torch.float32, dev)
+    args = (x["z"], x["el"], x["er"], nbr, mask, 0.2, "elu", x["res"], x["bias"])
+    out, alpha, pos = fused_gat_forward(*args)
+    w_out, w_alpha, w_pos = fused_gat_forward_plain(*args)
+    d_pre, d_er = fused_gat_backward(x["gout"], x["z"], alpha, pos, nbr, mask)
+    w_pre, w_er = fused_gat_backward_plain(x["gout"], x["z"], alpha, pos, nbr, mask)
+    d_z, d_el = gat_reverse_combine(x["gout"], alpha, d_pre, nbr, mask, rslot)
+    w_z, w_el = gat_reverse_combine_plain(x["gout"], alpha, d_pre, nbr, mask, rslot)
+    tag = "B=2 N=777 D=128 H=6 F=2 float32"
+    check(max(within(out, w_out), within(alpha, w_alpha)) <= GAT_FWD_TOL
+          and torch.equal(pos, w_pos), f"gat_fwd differs from plain ({tag})")
+    check(max(within(d_pre, w_pre), within(d_er, w_er)) <= GAT_BWD_TOL,
+          f"gat_bwd differs from plain ({tag})")
+    check(torch.equal(d_z, w_z) and torch.equal(d_el, w_el),
+          f"gat_rev differs from plain ({tag})")
+    log(f"[kernel] {tag}: gat_fwd, gat_bwd within tolerance, gat_rev bitwise")
+    log(f"[kernel] GAT kernels against plain, largest difference relative to "
+        f"the largest value: {worst}; absolute: {worst_abs}")
+    return {"rel": worst, "abs": worst_abs}
+
+
+def check_gat_dropout_refused(dev) -> None:
+    """GAT with attention dropout in training needs kernels 7 and 9 (not
+    ported): on the card it must raise and name them."""
+    from gnn_tumor_seg_tpu_torch.models.gat import GAT
+    from gnn_tumor_seg_tpu_torch.ops.graph import graph_from_arrays
+
+    model = GAT(IN_FEATS, [8], 4, [2], [False], attn_drop=0.5).to(dev)
+    src = np.array([0, 1, 1, 2])
+    dst = np.array([1, 0, 2, 1])
+    graph = graph_from_arrays(np.ones((3, IN_FEATS), np.float32), src, dst,
+                              rslot=True).to(dev)
+    try:
+        model(graph, train=True)
+    except NotImplementedError as e:
+        check("_wsum_kernel" in str(e) and "_slot_gather_kernel" in str(e),
+              f"attention dropout refused without naming its kernels: {e}")
+        log(f"[kernel] GAT attention dropout on {dev} refused: {e}")
+        return
+    raise SmokeFailure("GAT attention dropout ran on the card")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve
 # ---------------------------------------------------------------------------
@@ -368,30 +550,38 @@ def phase_train_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
 
 @contextlib.contextmanager
 def plain_aggregation():
-    """Route every aggregation (forward and backward) through the plain
-    versions for a comparison run on the card; the port itself never does
-    this on a CUDA tensor."""
-    from gnn_tumor_seg_tpu_torch.ops.kernels import max_agg, sum_agg
+    """Route every kernel (aggregation and GAT attention, forward and
+    backward) through its plain version for a comparison run on the card;
+    the port itself never does this on a CUDA tensor."""
+    from gnn_tumor_seg_tpu_torch.ops.kernels import fused_gat, max_agg, sum_agg
 
     def plain_max(h, nbr, nbr_mask, with_arg=True):
         out, arg = max_agg.max_aggregate_plain(h, nbr, nbr_mask)
         return out, (arg if with_arg else None)
 
-    saved = (max_agg.max_aggregate, max_agg.max_aggregate_backward,
-             sum_agg.sum_aggregate)
-    max_agg.max_aggregate = plain_max
-    max_agg.max_aggregate_backward = max_agg.max_aggregate_backward_plain
-    sum_agg.sum_aggregate = sum_agg.sum_aggregate_plain
+    swaps = [(max_agg, "max_aggregate", plain_max),
+             (max_agg, "max_aggregate_backward",
+              max_agg.max_aggregate_backward_plain),
+             (sum_agg, "sum_aggregate", sum_agg.sum_aggregate_plain),
+             (fused_gat, "fused_gat_forward", fused_gat.fused_gat_forward_plain),
+             (fused_gat, "fused_gat_backward", fused_gat.fused_gat_backward_plain),
+             (fused_gat, "gat_reverse_combine",
+              fused_gat.gat_reverse_combine_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        (max_agg.max_aggregate, max_agg.max_aggregate_backward,
-         sum_agg.sum_aggregate) = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def write_inputs(tmp: str, shape) -> tuple[str, str, str]:
-    """The synthetic brain as NIfTI files and seeded GNN/CNN checkpoints."""
-    from gnn_tumor_seg_tpu_torch.config import HyperParams
+    """The synthetic brain as NIfTI files and seeded GNN/CNN checkpoints;
+    a seeded GAT checkpoint of the hardcoded configuration beside them, as
+    gat.ckpt."""
+    from gnn_tumor_seg_tpu_torch.config import HyperParams, hardcoded_hyperparameters
     from gnn_tumor_seg_tpu_torch.data import nifti
     from gnn_tumor_seg_tpu_torch.models.factory import init_graph_net
     from gnn_tumor_seg_tpu_torch.models.refine_cnn import CnnRefinementNet
@@ -409,6 +599,9 @@ def write_inputs(tmp: str, shape) -> tuple[str, str, str]:
     cnn_ckpt = os.path.join(tmp, "cnn.ckpt")
     save_checkpoint(cnn_ckpt, CnnRefinementNet(8, 4, [16], generator=gen), "CNN",
                     HyperParams(in_feats=8, layer_sizes=[16]))
+    gat_hp = hardcoded_hyperparameters("GAT")
+    save_checkpoint(os.path.join(tmp, "gat.ckpt"), init_graph_net(
+        "GAT", gat_hp, torch.Generator().manual_seed(SEED)), "GAT", gat_hp)
     return in_dir, gnn_ckpt, cnn_ckpt
 
 
@@ -517,7 +710,68 @@ def phase_serve(device, shape=BRAIN_SHAPE, num_nodes=NUM_NODES,
                 result["launches"] += profile_request(lambda: predict_single_mri(
                     in_dir, gnn_forward, cnn_forward, num_nodes=num_nodes,
                     slic_fn=resolve_slic_fn("native")), n_layers, card)
+        result["gat"] = serve_gat(in_dir, os.path.join(tmp, "gat.ckpt"),
+                                  cnn_forward, device, num_nodes, shape, card)
     return result
+
+
+def serve_gat(in_dir, gat_ckpt, cnn_forward, device, num_nodes, shape,
+              card) -> dict:
+    """The GAT serve cell: the hardcoded GAT (seed-0 weights) served through
+    load_gnn_from_checkpoint and predict_single_mri, one request in "exact"
+    and one in "fast". Each must launch the fused forward once per layer
+    (5) and no backward kernel, return BraTS labels, and give node logits
+    that agree with the plain path's on the card. Returns the launch
+    total."""
+    from gnn_tumor_seg_tpu_torch.cli.common import (load_gnn_from_checkpoint,
+                                                    resolve_slic_fn)
+    from gnn_tumor_seg_tpu_torch.cli.predict_single import predict_single_mri
+    from gnn_tumor_seg_tpu_torch.ops.precision import precision_scope
+
+    on_card = torch.device(device).type == "cuda"
+    gat, _, gat_forward = load_gnn_from_checkpoint(gat_ckpt, device=device)
+    seen = {}
+
+    def capturing_forward(graph):
+        logits = gat_forward(graph)
+        seen["graph"], seen["logits"] = graph, logits
+        return logits
+
+    total = 0
+    for mode in ("exact", "fast"):
+        with precision_scope(mode):
+            st = {}
+            read = _reset_counts()
+            t = time.perf_counter()
+            pred = predict_single_mri(in_dir, capturing_forward, cnn_forward,
+                                      num_nodes=num_nodes,
+                                      slic_fn=resolve_slic_fn("native"),
+                                      stage_times=st)
+            wall = time.perf_counter() - t
+            counts = read()
+            total += counts["gat_fwd"]
+            if on_card:
+                check(counts == {**NO_LAUNCHES, "gat_fwd": gat.num_layers},
+                      f"GAT {mode} request: kernel launches {counts}, expected "
+                      f"{gat.num_layers} gat_fwd")
+            labels = set(np.unique(pred).tolist())
+            check(pred.shape == tuple(shape) and pred.dtype == np.int16,
+                  f"GAT prediction {pred.shape} {pred.dtype}")
+            check(labels <= {0, 1, 2, 4}, f"GAT labels {labels}")
+            kern = seen["logits"]
+            check(bool(torch.isfinite(kern).all()), "non-finite GAT logits")
+            with plain_aggregation():
+                plain = gat_forward(seen["graph"])
+            tol = GAT_LOGIT_TOL if mode == "exact" else FAST_LOGIT_TOL
+            err = within(kern, plain)
+            check(err <= tol, f"GAT {mode}: kernel-path logits differ from the "
+                  f"plain path's by {err:.3g} of the largest logit (> {tol})")
+            stages = {k: (round(v, 4) if isinstance(v, float) else v)
+                      for k, v in st.items()}
+            log(f"[serve-gat] {mode} request: {wall:.3f} s  launches={counts}  "
+                f"labels={sorted(labels)}  logits vs plain path {err:.3g} of "
+                f"the largest  stages={json.dumps(stages)}  card: {card}")
+    return {"launches": total}
 
 
 def profile_request(run, n_layers: int, card: str) -> int:
@@ -737,16 +991,25 @@ def write_train_data(root: str, n_samples: int = TRAIN_BATCH) -> None:
                             os.path.join(d, f"{mri_id}_label.nii.gz"))
 
 
+NO_LAUNCHES = {k: 0 for k in ("max_agg", "max_agg_bwd", "sum_agg", "gat_fwd",
+                               "gat_bwd", "gat_rev")}
+
+
 def _reset_counts():
+    """Set every kernel's launch count to 0; returns a function that reads
+    them."""
+    from gnn_tumor_seg_tpu_torch.ops.kernels.fused_gat import (
+        fused_gat_backward, fused_gat_forward, gat_reverse_combine)
     from gnn_tumor_seg_tpu_torch.ops.kernels.max_agg import (
         max_aggregate, max_aggregate_backward)
     from gnn_tumor_seg_tpu_torch.ops.kernels.sum_agg import sum_aggregate
 
-    for fn in (max_aggregate, max_aggregate_backward, sum_aggregate):
+    fns = {"max_agg": max_aggregate, "max_agg_bwd": max_aggregate_backward,
+           "sum_agg": sum_aggregate, "gat_fwd": fused_gat_forward,
+           "gat_bwd": fused_gat_backward, "gat_rev": gat_reverse_combine}
+    for fn in fns.values():
         fn.launches = 0
-    return lambda: {"max_agg": max_aggregate.launches,
-                    "max_agg_bwd": max_aggregate_backward.launches,
-                    "sum_agg": sum_aggregate.launches}
+    return lambda: {k: fn.launches for k, fn in fns.items()}
 
 
 def train_cli_run(data_dir, out_dir, run, model_type, n_epochs, precision,
@@ -757,9 +1020,10 @@ def train_cli_run(data_dir, out_dir, run, model_type, n_epochs, precision,
     rehearsal) no kernel is launched."""
     from gnn_tumor_seg_tpu_torch.cli import train_gnn
 
-    layers = len(TRAIN_WIDTHS) + 1
+    hp = _train_hp(model_type)
+    layers = len(hp.layer_sizes) + 1
     argv = ["-d", data_dir, "-o", out_dir, "-r", run, "-m", model_type, "-k", "1",
-            "--hp", f"layer_sizes={TRAIN_WIDTHS}", "--hp", f"n_epochs={n_epochs}",
+            "--hp", f"layer_sizes={hp.layer_sizes}", "--hp", f"n_epochs={n_epochs}",
             "--device", device]
     old = os.environ.get("GTS_PALLAS_PRECISION")
     os.environ["GTS_PALLAS_PRECISION"] = precision
@@ -780,15 +1044,19 @@ def train_cli_run(data_dir, out_dir, run, model_type, n_epochs, precision,
         epochs = [json.loads(line) for line in f if '"epoch"' in line]
     steps = sum(e["steps"] for e in epochs)
     eval_batches = 1                  # 6 samples, batch 6
+    want = dict(NO_LAUNCHES)
     if device != "cuda":
-        want = {"max_agg": 0, "max_agg_bwd": 0, "sum_agg": 0}
+        pass                          # the plain versions launch nothing
     elif model_type == "GSpool":
-        want = {"max_agg": layers * (steps + eval_batches),
-                "max_agg_bwd": layers * steps, "sum_agg": 0}
+        want.update(max_agg=layers * (steps + eval_batches),
+                    max_agg_bwd=layers * steps)
+    elif model_type == "GAT":
+        # every layer's z needs a gradient (through w): 5 + 5 + 5 per step
+        want.update(gat_fwd=layers * (steps + eval_batches),
+                    gat_bwd=layers * steps, gat_rev=layers * steps)
     else:
         # the first layer's input needs no gradient: 7 forward + 6 backward
-        want = {"max_agg": 0, "max_agg_bwd": 0,
-                "sum_agg": (2 * layers - 1) * steps + layers * eval_batches}
+        want.update(sum_agg=(2 * layers - 1) * steps + layers * eval_batches)
     check(counts == want, f"{run}: kernel launches {counts}, expected {want}")
     losses = [e["loss"] for e in epochs]
     check(all(np.isfinite(losses)), f"{run}: non-finite losses {losses}")
@@ -803,16 +1071,19 @@ def train_cli_run(data_dir, out_dir, run, model_type, n_epochs, precision,
     return {"epochs": epochs, "counts": counts, "steps": steps}
 
 
-def grads_match_plain(dataset, model_type, card, device="cuda") -> None:
+def grads_match_plain(dataset, model_type, card, device="cuda") -> float:
     """One batch in exact mode: the parameter gradients through the kernels
-    equal those through the plain aggregation, bitwise (the kernels are
-    bitwise equal to their plain versions and the rest is the same code)."""
+    equal those through the plain versions, bitwise for the SAGE models (the
+    kernels are bitwise equal to their plain versions and the rest is the
+    same code); for GAT within GAT_GRAD_TOL of each tensor's largest entry
+    (the fused forward and backward are held to a tolerance, not bitwise).
+    Returns the largest relative difference."""
     from gnn_tumor_seg_tpu_torch.ops.graph import batch_graphs
     from gnn_tumor_seg_tpu_torch.ops.precision import precision_scope
     from gnn_tumor_seg_tpu_torch.train.gnn_trainer import GNNTrainer
     from gnn_tumor_seg_tpu_torch.train.losses import weighted_cross_entropy
 
-    hp = _train_hp()
+    hp = _train_hp(model_type)
     trainer = GNNTrainer(model_type, hp, dataset, seed=SEED, device=device)
     batch = batch_graphs([dataset.get_graph(i) for i in range(len(dataset))]).to(device)
     params = trainer.model.jax_parameters()
@@ -827,28 +1098,39 @@ def grads_match_plain(dataset, model_type, card, device="cuda") -> None:
     kern = grads()
     with plain_aggregation():
         plain = grads()
-    diff = max((a - b).abs().max().item() for a, b in zip(kern, plain))
-    check(all(torch.equal(a, b) for a, b in zip(kern, plain)),
-          f"{model_type}: parameter gradients through the kernels differ from "
-          f"the plain aggregation's (max abs {diff})")
+    rel = max(within(a, b) for a, b in zip(kern, plain))
+    if model_type == "GAT":
+        check(rel <= GAT_GRAD_TOL,
+              f"GAT: parameter gradients through the kernels differ from the "
+              f"plain path's by {rel:.3g} of a tensor's largest entry")
+        how = f"within {rel:.3g} (tolerance {GAT_GRAD_TOL}) of"
+    else:
+        check(all(torch.equal(a, b) for a, b in zip(kern, plain)),
+              f"{model_type}: parameter gradients through the kernels differ "
+              f"from the plain aggregation's ({rel:.3g} relative)")
+        how = "bitwise equal to"
     log(f"[train] {model_type} exact: parameter gradients through the kernels "
-        f"equal the plain aggregation's ({len(params)} tensors); card: {card}")
+        f"{how} the plain path's ({len(params)} tensors); card: {card}")
+    return rel
 
 
-def _train_hp():
+def _train_hp(model_type="GSpool"):
+    """The training cell's configuration: GAT's hardcoded one, or the SAGE
+    models at TRAIN_WIDTHS."""
     from gnn_tumor_seg_tpu_torch.config import hardcoded_hyperparameters
 
-    hp = hardcoded_hyperparameters("GSpool")
-    hp.layer_sizes = list(TRAIN_WIDTHS)
+    hp = hardcoded_hyperparameters(model_type)
+    if model_type != "GAT":
+        hp.layer_sizes = list(TRAIN_WIDTHS)
     return hp
 
 
 def phase_train(tmp: str, card: str, device="cuda") -> dict:
     """The training main path through cli.train_gnn on the card: GSpool
-    [256]*6 for 3 epochs in "fast" (the loss must fall) and 1 in "exact",
-    GSmean and GSgcn for 1 epoch each; a checkpoint served through
-    load_gnn_from_checkpoint; gradients through the kernels against the plain
-    aggregation's for the three models."""
+    [256]*6 and the hardcoded GAT for 3 epochs in "fast" each (the loss must
+    fall) and 1 in "exact", GSmean and GSgcn for 1 epoch each; the GSpool
+    and GAT checkpoints served through load_gnn_from_checkpoint; gradients
+    through the kernels against the plain path's for the four models."""
     from gnn_tumor_seg_tpu_torch.cli.common import load_gnn_from_checkpoint
     from gnn_tumor_seg_tpu_torch.data.dataset import ImageGraphDataset
 
@@ -860,36 +1142,39 @@ def phase_train(tmp: str, card: str, device="cuda") -> dict:
         f"{time.perf_counter() - t:.2f} s")
     plan = [("gspool_fast", "GSpool", 3, "fast"),
             ("gspool_exact", "GSpool", 1, "exact"),
-            ("gsmean", "GSmean", 1, "fast"), ("gsgcn", "GSgcn", 1, "fast")]
+            ("gsmean", "GSmean", 1, "fast"), ("gsgcn", "GSgcn", 1, "fast"),
+            ("gat_fast", "GAT", 3, "fast"), ("gat_exact", "GAT", 1, "exact")]
     runs = {run: train_cli_run(data_dir, out_dir, run, model_type, epochs,
                                precision, card, device)
             for run, model_type, epochs, precision in plan}
-    losses = [e["loss"] for e in runs["gspool_fast"]["epochs"]]
-    check(losses[-1] < losses[0], f"GSpool loss did not fall: {losses}")
-    with open(os.path.join(out_dir, "gspool_fast.txt")) as f:
-        rows = [line for line in f if line.startswith("gspool_fast_full\t")]
-    check(len(rows) == 1, "no progress row for the GSpool run")
-    log(f"[train] progress row: {rows[0].strip()}")
-
     dataset = ImageGraphDataset(data_dir, read_image=False)
-    model, _, forward = load_gnn_from_checkpoint(
-        os.path.join(out_dir, "gspool_fast_f1.ckpt"), device=device)
-    read = _reset_counts()
     graph = dataset.get_graph(0)
-    logits = forward(graph)
-    if device == "cuda":
-        torch.cuda.synchronize()
-        check(read()["max_agg"] == model.num_layers,
-              f"served checkpoint: {read()} launches")
-    check(logits.shape == (1, graph.num_nodes_padded, 4)
-          and bool(torch.isfinite(logits).all()),
-          f"served checkpoint logits {tuple(logits.shape)}, finite "
-          f"{bool(torch.isfinite(logits).all())}")
-    log("[train] gspool_fast_f1.ckpt served through load_gnn_from_checkpoint: "
-        f"finite logits {tuple(logits.shape)}, {model.num_layers} max_agg launches")
-    for model_type in ("GSpool", "GSmean", "GSgcn"):
-        grads_match_plain(dataset, model_type, card, device)
-    return {"runs": runs, "data_dir": data_dir}
+    for run, name, kernel in (("gspool_fast", "GSpool", "max_agg"),
+                              ("gat_fast", "GAT", "gat_fwd")):
+        losses = [e["loss"] for e in runs[run]["epochs"]]
+        check(losses[-1] < losses[0], f"{name} loss did not fall: {losses}")
+        with open(os.path.join(out_dir, f"{run}.txt")) as f:
+            rows = [line for line in f if line.startswith(f"{run}_full\t")]
+        check(len(rows) == 1, f"no progress row for the {name} run")
+        log(f"[train] progress row: {rows[0].strip()}")
+        model, _, forward = load_gnn_from_checkpoint(
+            os.path.join(out_dir, f"{run}_f1.ckpt"), device=device)
+        read = _reset_counts()
+        logits = forward(graph)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            check(read() == {**NO_LAUNCHES, kernel: model.num_layers},
+                  f"served {name} checkpoint: {read()} launches")
+        check(logits.shape == (1, graph.num_nodes_padded, 4)
+              and bool(torch.isfinite(logits).all()),
+              f"served {name} checkpoint logits {tuple(logits.shape)}, finite "
+              f"{bool(torch.isfinite(logits).all())}")
+        log(f"[train] {run}_f1.ckpt served through load_gnn_from_checkpoint: "
+            f"finite logits {tuple(logits.shape)}, {model.num_layers} {kernel} "
+            f"launches")
+    grads = {model_type: grads_match_plain(dataset, model_type, card, device)
+             for model_type in ("GSpool", "GSmean", "GSgcn", "GAT")}
+    return {"runs": runs, "data_dir": data_dir, "gat_grad_rel": grads["GAT"]}
 
 
 # ---------------------------------------------------------------------------
@@ -923,19 +1208,19 @@ def profile_train_steps(trainer, card, steps: int = 3) -> dict:
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": idle, "top": top}
 
 
-def time_train_steps(dataset, card, steps: int = 8) -> dict:
-    """The flagship step (GSpool [256]*6, batch 6 x 8192) through
-    GNNTrainer.run_epoch, one step per epoch, in "exact" and "fast": the
-    median epoch wall time (host clock, ending in the epoch's one
-    synchronize) after 2 warm-up epochs, and edges_per_s (real edges x 7
-    layers / step time, bench.py:160-161); then 3 more steps under the
-    profiler for the idle share and the top kernels."""
+def time_train_steps(dataset, card, model_type="GSpool", steps: int = 8) -> dict:
+    """A training step of the cell (GSpool [256]*6, or the hardcoded GAT;
+    batch 6 x 8192) through GNNTrainer.run_epoch, one step per epoch, in
+    "exact" and "fast": the median epoch wall time (host clock, ending in the
+    epoch's one synchronize) after 2 warm-up epochs, and edges_per_s (real
+    edges x layers / step time, bench.py:160-161); then 3 more steps under
+    the profiler for the idle share and the top kernels."""
     from gnn_tumor_seg_tpu_torch.train.gnn_trainer import GNNTrainer
 
     out = {}
     for precision in ("exact", "fast"):
-        trainer = GNNTrainer("GSpool", _train_hp(), dataset, seed=SEED,
-                             precision=precision, device="cuda")
+        trainer = GNNTrainer(model_type, _train_hp(model_type), dataset,
+                             seed=SEED, precision=precision, device="cuda")
         for _ in range(2):
             trainer.run_epoch()
         secs, eps = [], []
@@ -946,11 +1231,12 @@ def time_train_steps(dataset, card, steps: int = 8) -> dict:
         out[precision] = {"step_ms": statistics.median(secs) * 1e3,
                           "edges_per_s": statistics.median(eps),
                           "step_ms_all": [round(x * 1e3, 3) for x in secs]}
-        log(f"[train-timing] GSpool [256]*6 {precision} step: median "
+        log(f"[train-timing] {model_type} {precision} step: median "
             f"{out[precision]['step_ms']:.3f} ms over {steps} steps "
             f"{out[precision]['step_ms_all']}, edges_per_s "
             f"{out[precision]['edges_per_s']:.6g}; card: {card}")
         out[precision]["profile"] = profile_train_steps(trainer, card)
+        del trainer
     return out
 
 
@@ -1070,6 +1356,136 @@ def phase_train_timing(dataset, card) -> dict:
     return {"rows": rows, "referenced_rows": referenced, "B": B, "N": N, "D": D}
 
 
+# the hardcoded GAT's layers: (heads, features, activation, residual)
+GAT_LAYERS = [(4, 256, "elu", False), (4, 256, "elu", False),
+              (3, 256, "elu", True), (3, 256, "elu", False), (1, 4, None, False)]
+
+
+def gat_library_inputs(z, alpha, nbr, mask):
+    """Inputs of F.embedding_bag(mode="sum", per_sample_weights=alpha) over
+    the [B*N*H, F] view of z: one bag per (row, head) of its D slots, padded
+    slots naming an extra zero row passed as padding_idx. It computes the
+    combine sum_d alpha z[nbr] alone (no softmax, no epilogue): a partial
+    yardstick, which the port never calls."""
+    B, N, H, F = z.shape
+    D = nbr.shape[2]
+    offs = (torch.arange(B, device=z.device) * N).view(B, 1, 1)
+    rows = torch.where(mask > 0, nbr + offs, B * N)                 # [B,N,D]
+    heads = torch.arange(H, device=z.device).view(1, 1, 1, H)
+    idx = torch.where(rows[..., None] < B * N, rows[..., None] * H + heads,
+                      B * N * H)                                     # [B,N,D,H]
+    idx = idx.permute(0, 1, 3, 2).reshape(B * N * H, D).contiguous()
+    w = alpha.reshape(B, N, D, H).permute(0, 1, 3, 2).reshape(B * N * H, D)
+    weight = torch.cat([z.reshape(B * N * H, F), z.new_zeros(1, F)])
+    return idx, weight, w.to(z.dtype).contiguous(), B * N * H
+
+
+def phase_gat_timing(dataset, card) -> dict:
+    """The three fused GAT kernels at the training batch's own table (B=6,
+    N=8192, D=12) and the hardcoded GAT's layer shapes, f32 and bf16:
+    device ms per launch (CUDA-graph replay) of the forward as training runs
+    it (alpha and sign mask stored) and as serving runs it, the backward and
+    the reverse combine; each beside its plain version and its byte bound;
+    embedding_bag's weighted sum as the combine's partial yardstick. These
+    launches come after the main path's counts were read and are not part
+    of them."""
+    import torch.nn.functional as F_
+
+    from gnn_tumor_seg_tpu_torch.ops.graph import batch_graphs
+    from gnn_tumor_seg_tpu_torch.ops.kernels.fused_gat import (
+        fused_gat_backward, fused_gat_backward_plain, fused_gat_forward,
+        fused_gat_forward_plain, gat_reverse_combine, gat_reverse_combine_plain)
+
+    dev = torch.device("cuda")
+    batch = batch_graphs([dataset.get_graph(i) for i in range(len(dataset))]).to(dev)
+    nbr, mask, rslot = batch.nbr, batch.nbr_mask, batch.rslot
+    B, N, D = nbr.shape
+    offs = (torch.arange(B, device=dev) * N).view(B, 1, 1)
+    referenced = int(torch.unique((nbr + offs)[mask > 0]).numel())
+    rng = np.random.default_rng(SEED + 3)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        es = torch.empty((), dtype=dtype).element_size()
+        for H, F in GAT_HEAD_SHAPES:
+            x = gat_inputs(rng, B, N, H, F, dtype, dev)
+            z, gout = x["z"], x["gout"]
+            HF, DH = H * F, D * H
+            _, alpha, pos = fused_gat_forward(z, x["el"], x["er"], nbr, mask,
+                                              save=True)
+            d_pre, _ = fused_gat_backward(gout, z, alpha, pos, nbr, mask)
+            lib_ms = None
+            if dtype == torch.float32:
+                idx, weight, w, pad = gat_library_inputs(z, alpha, nbr, mask)
+                library = lambda: F_.embedding_bag(idx, weight, mode="sum",
+                                                   per_sample_weights=w,
+                                                   padding_idx=pad)
+                combine, _, _ = fused_gat_forward(z, x["el"], x["er"], nbr, mask,
+                                                  save=False)
+                lib_err = within(library().reshape(B, N, H, F), combine)
+                lib_ms = time_device(library)
+                log(f"[gat-timing] embedding_bag weighted sum vs the fused "
+                    f"combine (no epilogue) at H={H} F={F} {name}: {lib_err:.3g} "
+                    f"of the largest value")
+                del idx, weight, w, combine
+            table = B * N * D * 4
+            slot = B * N * DH
+            # compulsory bytes: each input read once (z's referenced rows),
+            # each output written once
+            ref_rows = referenced * HF * es
+            fwd_in = ref_rows + 2 * B * N * H * es + 2 * table + HF * es
+            timings = {}
+            for act, with_res in sorted({(a, r) for h, f, a, r in GAT_LAYERS
+                                         if (h, f) == (H, F)}, key=str):
+                res = x["res"] if with_res else None
+                args = (z, x["el"], x["er"], nbr, mask, 0.2, act, res, x["bias"])
+                extra = B * N * HF * es if with_res else 0
+                timings[("gat_fwd", act, with_res)] = (
+                    lambda args=args: fused_gat_forward(*args, save=True),
+                    lambda args=args: fused_gat_forward_plain(*args, save=True),
+                    fwd_in + extra + B * N * HF * es + slot * 5)
+                timings[("gat_fwd_serve", act, with_res)] = (
+                    lambda args=args: fused_gat_forward(*args, save=False),
+                    lambda args=args: fused_gat_forward_plain(*args, save=False),
+                    fwd_in + extra + B * N * HF * es)
+            timings[("gat_bwd", None, False)] = (
+                lambda: fused_gat_backward(gout, z, alpha, pos, nbr, mask),
+                lambda: fused_gat_backward_plain(gout, z, alpha, pos, nbr, mask),
+                B * N * HF * es + ref_rows + slot * 5 + 2 * table
+                + slot * 4 + B * N * H * 4)
+            timings[("gat_rev", None, False)] = (
+                lambda: gat_reverse_combine(gout, alpha, d_pre, nbr, mask, rslot),
+                lambda: gat_reverse_combine_plain(gout, alpha, d_pre, nbr, mask,
+                                                  rslot),
+                ref_rows + slot * 8 + 3 * table + B * N * HF * es + B * N * H * 4)
+            for (kname, act, with_res), (kern, plain, nbytes) in timings.items():
+                row = {"ms": time_device(kern), "plain_ms": time_device(plain, reps=5,
+                                                                        inner=3),
+                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+                       "library_ms": lib_ms if kname.startswith("gat_fwd") else None}
+                rows[(kname, name, H, F, act, with_res)] = row
+                log(f"[gat-timing] {kname} {name} H={H} F={F} act={act} "
+                    f"res={with_res}: device {row['ms']:.5f} ms, bound "
+                    f"{row['bound_ms']:.5f} ms ({nbytes} B), plain "
+                    f"{row['plain_ms']:.5f} ms, library (partial, "
+                    f"embedding_bag weighted sum) {row['library_ms']} ms; "
+                    f"card: {card}")
+            del x, z, gout, alpha, pos, d_pre
+    return {"rows": rows, "referenced_rows": referenced, "B": B, "N": N, "D": D}
+
+
+def gat_per_step(rows, kname, dtype="float32") -> dict:
+    """One GAT training step's (or serve request's, for gat_fwd_serve) sum
+    over the hardcoded GAT's five layers of a kernel's timing rows."""
+    out = {}
+    for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        vals = [rows[(kname, dtype, h, f, *((a, r) if kname.startswith("gat_fwd")
+                                              else (None, False)))][k]
+                for h, f, a, r in GAT_LAYERS]
+        out[k] = None if any(v is None for v in vals) else sum(vals)
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1099,6 +1515,8 @@ def main() -> int:
     dev = torch.device("cuda")
     worst = phase_kernel_check(dev)
     train_worst = phase_train_kernel_check(dev)
+    gat_worst = phase_gat_kernel_check(dev)
+    check_gat_dropout_refused(dev)
     serve = phase_serve("cuda", card=card)
     timing = phase_timing(serve["graph"], card)
     worst = max(worst, timing["max_abs_err"], train_worst["max_agg"])
@@ -1109,9 +1527,11 @@ def main() -> int:
         dataset = ImageGraphDataset(train["data_dir"], read_image=False)
         step = time_train_steps(dataset, card)
         ttime = phase_train_timing(dataset, card)
+        gat_step = time_train_steps(dataset, card, "GAT")
+        gtime = phase_gat_timing(dataset, card)
     runs = train["runs"]
     train_launches = {k: sum(r["counts"][k] for r in runs.values())
-                      for k in ("max_agg", "max_agg_bwd", "sum_agg")}
+                      for k in NO_LAUNCHES}
     for k, n in train_launches.items():
         check(n > 0, f"{k} was never launched on the training path")
     rows = ttime["rows"]
@@ -1175,9 +1595,60 @@ def main() -> int:
                 "F.embedding_bag(mode='mean'/'sum', padding_idx)"),
         "fast_bf16": per_step(rows, gsmean_parts, "bfloat16"),
     }]
+    grows = gtime["rows"]
+    gtable = f"B={gtime['B']}, N={gtime['N']}, D={gtime['D']}"
+    gat_layers = ("hardcoded GAT, 5 layers: (H,F) = (4,256) x2, (3,256) x2 "
+                  "(the third with its w_res residual), (1,4)")
+    kernels += [{
+        "name": "gat_fwd",
+        "route": "cuda",
+        "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/fused_gat.cu",
+        "replaces": "gnn_tumor_seg_tpu/ops/pallas/fused_gat.py:103",
+        "launches": serve["gat"]["launches"] + train_launches["gat_fwd"],
+        "launches_by_path": {"serve": serve["gat"]["launches"],
+                             "train": train_launches["gat_fwd"]},
+        "max_abs_err": gat_worst["abs"]["gat_fwd"],
+        "max_rel_err": gat_worst["rel"]["gat_fwd"],
+        **gat_per_step(grows, "gat_fwd"),
+        "bound_by": "bytes",
+        "per": (f"one GAT training step, f32, alpha and sign mask stored: "
+                f"{gat_layers}, {gtable}; library (partial): the combine "
+                "alone, F.embedding_bag(mode='sum', per_sample_weights=alpha)"),
+        "serve_variant_f32": gat_per_step(grows, "gat_fwd_serve"),
+        "fast_bf16": gat_per_step(grows, "gat_fwd", "bfloat16"),
+    }, {
+        "name": "gat_bwd",
+        "route": "cuda",
+        "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/fused_gat.cu",
+        "replaces": "gnn_tumor_seg_tpu/ops/pallas/fused_gat.py:186",
+        "launches": train_launches["gat_bwd"],
+        "max_abs_err": gat_worst["abs"]["gat_bwd"],
+        "max_rel_err": gat_worst["rel"]["gat_bwd"],
+        **gat_per_step(grows, "gat_bwd"),
+        "bound_by": "bytes",
+        "per": f"one GAT training step, f32: {gat_layers}, {gtable}; no library call",
+        "fast_bf16": gat_per_step(grows, "gat_bwd", "bfloat16"),
+    }, {
+        "name": "gat_rev",
+        "route": "cuda",
+        "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/fused_gat.cu",
+        "replaces": "gnn_tumor_seg_tpu/ops/pallas/fused_gat.py:238",
+        "launches": train_launches["gat_rev"],
+        "max_abs_err": gat_worst["abs"]["gat_rev"],
+        **gat_per_step(grows, "gat_rev"),
+        "bound_by": "bytes",
+        "per": f"one GAT training step, f32: {gat_layers}, {gtable}; no library call",
+        "fast_bf16": gat_per_step(grows, "gat_rev", "bfloat16"),
+    }]
+    check(serve["gat"]["launches"] > 0, "gat_fwd was never launched on the serve path")
     log("[train] step: " + json.dumps(
         {mode: {k: v for k, v in row.items() if k != "profile"}
          for mode, row in step.items()}))
+    log("[train] GAT step: " + json.dumps(
+        {mode: {k: v for k, v in row.items() if k != "profile"}
+         for mode, row in gat_step.items()})
+        + f"; gradients through the kernels within {train['gat_grad_rel']:.3g} "
+        f"of the plain path's")
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

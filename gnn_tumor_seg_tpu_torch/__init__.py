@@ -9,6 +9,8 @@ max-aggregation kernel (ops/kernels/max_agg.py), and the refinement CNN.
 Slice 2 covers GNN training on one device (cli/train_gnn.py,
 train/gnn_trainer.py) for GSpool, GSmean and GSgcn, with the backward
 kernel of max aggregation and the sum/mean kernel (ops/kernels/sum_agg.py).
+Slice 3 adds GAT to both (models/gat.py), with the fused attention kernels
+and their backward (ops/kernels/fused_gat.py).
 """
 
 __version__ = "0.1.0"

@@ -3,8 +3,9 @@ on the GPU (counterpart of gnn_tumor_seg_tpu/cli/predict_single.py).
 
 An input directory with one MRI's four modalities `*_{flair,t1,t1ce,t2}.nii.gz`
 produces `<output>/<id>.nii.gz` with BraTS labels and the standard affine:
-preprocess in memory, GSpool forward (max aggregation through the Hopper
-kernel), CNN refinement, uncrop, label swap, save.
+preprocess in memory, the GNN forward of the checkpoint's model (GSpool,
+GSmean, GSgcn or GAT, through the Hopper kernels), CNN refinement, uncrop,
+label swap, save.
 
 Run: python -m gnn_tumor_seg_tpu_torch.cli.predict_single -i /input -o /output \
         -g gnn.ckpt -c cnn.ckpt [--device cuda|cpu]

@@ -8,18 +8,18 @@ CLI, single-device regime; k=1 trains on the full dataset. Checkpoints
 directory, in the JAX package's formats.
 
   python -m gnn_tumor_seg_tpu_torch.cli.train_gnn -d <processed> -o <logs> -r run1 \\
-      [-m GSpool|GSmean|GSgcn] [-k K] [-x] [--hp KEY=VAL ...] \\
+      [-m GSpool|GSmean|GSgcn|GAT] [-k K] [-x] [--hp KEY=VAL ...] \\
       [--resume_from CKPT] [--profile DIR] [--device cuda|cpu]
 
-Runs on the GPU unless --device cpu is given (then every aggregation takes
-its plain PyTorch version). Training runs in precision mode "fast" unless
-GTS_PALLAS_PRECISION=exact, as for the JAX package. The JAX package's
-distribution options (--parallel dp|halo, --mesh, --halo_variant,
---graphs_per_batch and the multi-host flags) are accepted by the parser and
-refused: the port's distribution is still to come (ROADMAP.md, modules to
-port, item "Distribution"). --impl has no counterpart: the port has one
-aggregation per device, the kernels on CUDA and their plain versions on the
-CPU.
+Runs on the GPU unless --device cpu is given (then every aggregation and
+GAT's fused attention take their plain PyTorch versions). Training runs in
+precision mode "fast" unless GTS_PALLAS_PRECISION=exact, as for the JAX
+package. The JAX package's distribution options (--parallel dp|halo,
+--mesh, --halo_variant, --graphs_per_batch and the multi-host flags) are
+accepted by the parser and refused: the port's distribution is still to
+come (ROADMAP.md, modules to port, item "Distribution"). --impl has no
+counterpart: the port has one aggregation per device, the kernels on CUDA
+and their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -143,7 +143,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Log directory (weights + progress file)")
     p.add_argument("-r", "--run_name", required=True, type=str)
     p.add_argument("-m", "--model_type", default="GSpool", type=str,
-                   help="GSpool, GSmean, GSgcn (GAT is not ported yet)")
+                   help="GSpool, GSmean, GSgcn or GAT")
     p.add_argument("-k", "--num_folds", default=5, type=int,
                    help="k-fold validation folds; 1 = train on full dataset")
     p.add_argument("-p", "--data_prefix", default="", type=str)

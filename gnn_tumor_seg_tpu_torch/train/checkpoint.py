@@ -20,8 +20,9 @@ import numpy as np
 
 from ..config import HyperParams
 from ..convert import (CNN_KEYS, cnn_params_from_jax, cnn_params_to_jax,
-                       gnn_params_from_jax)
-from ..models.factory import GRAPH_MODEL_TYPES, SAGE_AGGREGATORS
+                       gnn_params_from_jax, load_gnn_params)
+from ..models.factory import GRAPH_MODEL_TYPES, SAGE_AGGREGATORS, init_graph_net
+from ..models.gat import GAT
 from ..models.refine_cnn import CnnRefinementNet
 from ..models.sage import LAYER_KEYS, GraphSage
 
@@ -32,10 +33,11 @@ _MANIFEST_KEY = "__manifest__"
 
 
 def _leaves(model) -> tuple[list[np.ndarray], str]:
-    if isinstance(model, GraphSage):
+    if isinstance(model, (GraphSage, GAT)):
         leaves = [p.detach().cpu().numpy() for p in model.jax_parameters()]
-        return (leaves, f"list of {model.num_layers} dicts "
-                        f"{list(LAYER_KEYS[model.aggregator])}")
+        keys = ([list(layer.keys) for layer in model.layers]
+                if isinstance(model, GAT) else list(LAYER_KEYS[model.aggregator]))
+        return leaves, f"list of {model.num_layers} dicts {keys}"
     if isinstance(model, CnnRefinementNet):
         params = cnn_params_to_jax(model)
         return ([params[a][b] for a, b in CNN_KEYS],
@@ -46,9 +48,10 @@ def _leaves(model) -> tuple[list[np.ndarray], str]:
 def save_checkpoint(path: str, model, model_type: str, hp: HyperParams,
                     opt_state: list[np.ndarray] | None = None,
                     extra: dict | None = None) -> None:
-    """Write `model` (a GraphSage or CnnRefinementNet) with its config and,
-    when given, the optimizer state's leaves (train/optim.opt_state_leaves);
-    atomic (temporary file renamed into place)."""
+    """Write `model` (a GraphSage, GAT or CnnRefinementNet) with its config
+    and, when given, the optimizer state's leaves
+    (train/optim.opt_state_leaves); atomic (temporary file renamed into
+    place)."""
     leaves, treedef = _leaves(model)
     manifest = {
         "model_type": model_type,
@@ -98,9 +101,19 @@ def load_opt_state(path: str) -> list[np.ndarray] | None:
 
 
 def gnn_from_leaves(leaves: list[np.ndarray], model_type: str, hp: HyperParams,
-                    device="cpu") -> GraphSage:
-    """A GraphSage of `model_type` from checkpoint leaves (JAX flatten
-    order)."""
+                    device="cpu") -> GraphSage | GAT:
+    """A GraphSage or GAT of `model_type` from checkpoint leaves (JAX
+    flatten order). A GAT's layer specs, and which of its layers carry
+    w_res, come from the checkpoint's HyperParams."""
+    if model_type == "GAT":
+        model = init_graph_net("GAT", hp)
+        n = len(model.jax_parameters())
+        if len(leaves) != n:
+            raise ValueError(f"{len(leaves)} leaves for a GAT of {n} parameters")
+        it = iter(leaves)
+        load_gnn_params(model, [{k: next(it) for k in layer.keys}
+                                for layer in model.layers])
+        return model.to(device)
     if model_type not in SAGE_AGGREGATORS:
         raise NotImplementedError(
             f"{model_type} checkpoints need a model the port does not have "

@@ -9,9 +9,9 @@ The JAX trainer's behaviour, step for step:
   - minibatches are stacks over a batch axis at the dataset's bucket shape;
     a short last batch is filled with masked copies that add nothing to the
     weighted-mean loss;
-  - one step is forward, weighted CE, backward (the aggregation kernels'
-    backward passes on the card), AdamW; the learning rate is set once per
-    epoch from the epoch counter (train/optim.py);
+  - one step is forward, weighted CE, backward (the aggregation or fused
+    attention kernels' backward passes on the card), AdamW; the learning
+    rate is set once per epoch from the epoch counter (train/optim.py);
   - training runs under precision mode "fast" unless the trainer is given
     "exact" (or GTS_PALLAS_PRECISION says so, as for the JAX package);
     evaluation and prediction run in "exact";
@@ -264,7 +264,8 @@ class GNNTrainer:
             extra={"epoch": self.epoch})
 
     def load_params(self, params: list[dict]) -> None:
-        """Set the parameters from the JAX GraphSage parameter list."""
+        """Set the parameters from the JAX model's parameter list (GraphSage
+        or GAT, as the trainer's model)."""
         load_gnn_params(self.model, params)
 
     def restore(self, path: str) -> None:

@@ -19,7 +19,7 @@ of optax's inject_hyperparams(adamw) state in its flatten order,
   then    mu, one leaf per parameter, in parameter order
   then    nu, likewise,
 
-with the parameters in the JAX pytree order (GraphSage.jax_parameters), so
+with the parameters in the JAX pytree order (the model's jax_parameters), so
 a checkpoint written by either package resumes in the other.
 """
 

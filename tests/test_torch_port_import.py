@@ -2,7 +2,7 @@
 
 Every module of gnn_tumor_seg_tpu_torch is imported in a fresh interpreter
 in which importing `jax` or `gnn_tumor_seg_tpu` fails, and one CPU training
-epoch and evaluation run there; the interpreter must then hold no `jax` and
+epoch and evaluation of GSpool and of GAT run there; the interpreter must then hold no `jax` and
 no `gnn_tumor_seg_tpu` module. Importing must also build nothing: the
 kernels are compiled at first use.
 """
@@ -28,8 +28,8 @@ import gnn_tumor_seg_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-# one CPU training epoch and an evaluation, so the imports made inside
-# functions on the training path run too
+# one CPU training epoch and an evaluation of GSpool and of GAT, so the
+# imports made inside functions on the training paths run too
 from gnn_tumor_seg_tpu_torch.config import HyperParams
 from gnn_tumor_seg_tpu_torch.data.synthetic import SyntheticGraphDataset
 from gnn_tumor_seg_tpu_torch.train.gnn_trainer import GNNTrainer
@@ -38,6 +38,10 @@ trainer = GNNTrainer("GSpool", HyperParams(layer_sizes=[4], batch_size=2), data,
                      device="cpu")
 trainer.run_epoch()
 trainer.evaluate(data)
+gat = GNNTrainer("GAT", HyperParams(layer_sizes=[4], batch_size=2, gat_heads=[2],
+                                    gat_residuals=[False]), data, device="cpu")
+gat.run_epoch()
+gat.evaluate(data)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "gnn_tumor_seg_tpu"
              or m.startswith("gnn_tumor_seg_tpu."))
@@ -60,6 +64,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         "gnn_tumor_seg_tpu_torch.cli.train_gnn",
         "gnn_tumor_seg_tpu_torch.ops.kernels.max_agg",
         "gnn_tumor_seg_tpu_torch.ops.kernels.sum_agg",
+        "gnn_tumor_seg_tpu_torch.ops.kernels.fused_gat",
+        "gnn_tumor_seg_tpu_torch.models.gat",
         "gnn_tumor_seg_tpu_torch.data.native",
         "gnn_tumor_seg_tpu_torch.data.cache",
         "gnn_tumor_seg_tpu_torch.data.dataset",

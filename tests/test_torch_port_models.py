@@ -77,7 +77,7 @@ def test_logits_and_gradients_match_jax(graphs, model_type):
 
 def test_factory_builds_every_sage_type_and_round_trips():
     hp = HyperParams(layer_sizes=[16, 16])
-    assert GRAPH_MODEL_TYPES == ("GSpool", "GSmean", "GSgcn")
+    assert GRAPH_MODEL_TYPES == ("GSpool", "GSmean", "GSgcn", "GAT")
     for model_type, agg in AGG.items():
         model = init_graph_net(model_type, hp, torch.Generator().manual_seed(0))
         assert model.aggregator == agg and model.num_layers == 3
@@ -86,5 +86,17 @@ def test_factory_builds_every_sage_type_and_round_trips():
         back = gnn_params_from_jax(gnn_params_to_jax(model))
         for a, b in zip(model.jax_parameters(), back.jax_parameters()):
             assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
-        init_graph_net("GAT", hp)
+    # GAT builds from its heads and residuals (the identity residual here:
+    # the second layer's input, 2 heads x 16, is as wide as its output)
+    hp.gat_heads, hp.gat_residuals = [2, 2], [False, True]
+    gat = init_graph_net("GAT", hp, torch.Generator().manual_seed(0))
+    assert gat.num_layers == 3 and gat.layers[1].w_res is None
+    assert [n for n, _ in gat.named_parameters()][:4] == [
+        "layers.0.w", "layers.0.attn_l", "layers.0.attn_r", "layers.0.bias"]
+    assert [list(layer.keys) for layer in gat.layers] == [
+        ["attn_l", "attn_r", "bias", "w"]] * 3
+    for layer in gat.layers:
+        for name in ("w", "attn_l", "attn_r"):
+            w = getattr(layer, name).detach()
+            bound = 2 ** 0.5 * (6.0 / (w.shape[0] + w.shape[1])) ** 0.5
+            assert w.abs().max() <= bound and w.abs().max() > 0.5 * bound

@@ -104,8 +104,22 @@ def test_init_bounds_match_jax_initializers():
             bound = math.sqrt(2.0) * math.sqrt(6.0 / (w.shape[0] + w.shape[1]))
             assert w.abs().max() <= bound and w.abs().max() > 0.9 * bound
         assert not layer.bias.any() and not layer.b_pool.any()
-    with pytest.raises(NotImplementedError):
-        init_graph_net("GAT", hp)
+    # GAT builds too, within the same bounds (attention vectors: fan_in =
+    # heads, fan_out = features), its parameters in JAX flatten order
+    hp.gat_heads, hp.gat_residuals = [4, 3], [False, True]
+    gat = init_graph_net("GAT", hp, torch.Generator().manual_seed(0))
+    assert [list(layer.keys) for layer in gat.layers] == [
+        ["attn_l", "attn_r", "bias", "w"],
+        ["attn_l", "attn_r", "bias", "w", "w_res"],
+        ["attn_l", "attn_r", "bias", "w"]]
+    assert [tuple(p.shape) for p in gat.jax_parameters()[:4]] == [
+        (4, 64), (4, 64), (256,), (20, 256)]
+    for layer in gat.layers:
+        for name in ("w", "attn_l", "attn_r"):
+            w = getattr(layer, name).detach()
+            bound = math.sqrt(2.0) * math.sqrt(6.0 / (w.shape[0] + w.shape[1]))
+            assert w.abs().max() <= bound and w.abs().max() > 0.5 * bound
+        assert not layer.bias.any()
 
 
 def test_dropout_only_in_training(shared):
