@@ -384,9 +384,23 @@ def phase_train_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
     return worst
 
 
-# the fused GAT kernels at the hardcoded GAT's shapes (config.py: heads
-# [4, 4, 3, 3] of 256 features, then the one-head output layer of 4 classes)
-GAT_HEAD_SHAPES = [(4, 256), (3, 256), (1, 4)]
+def gat_layers() -> list[tuple[int, int, str | None, bool]]:
+    """The hardcoded GAT's layers as the model factory builds them for the
+    main path: (heads, features, activation, residual); ELU on every layer
+    but the output layer."""
+    from gnn_tumor_seg_tpu_torch.config import hardcoded_hyperparameters
+    from gnn_tumor_seg_tpu_torch.models.factory import init_graph_net
+
+    specs = init_graph_net("GAT", hardcoded_hyperparameters("GAT")).specs
+    return [(heads, out, None if i == len(specs) - 1 else "elu", res)
+            for i, (_, out, heads, res) in enumerate(specs)]
+
+
+def gat_head_shapes(layers) -> list[tuple[int, int]]:
+    """The distinct (heads, features) of `layers`, in layer order."""
+    return list(dict.fromkeys((h, f) for h, f, _, _ in layers))
+
+
 # kernel against plain, relative to the largest |value| of the result: the
 # forward differs only where CUDA's expf and torch's exp differ (an ulp);
 # the backward's dot over F sums in a shuffle tree, torch in its own order.
@@ -421,8 +435,8 @@ def gat_inputs(rng, B, N, H, F, dtype, dev):
 
 def phase_gat_kernel_check(dev, N=8192, n_real=TRAIN_NODES, B=TRAIN_BATCH) -> dict:
     """The three fused GAT kernels against their plain versions on the card
-    at the training shapes (B=6, N=8192 of which 7000 real, D=12/16,
-    (H,F) = (4,256), (3,256), (1,4), f32 and bf16), on random symmetric
+    at the training shapes (B=6, N=8192 of which 7000 real, D=12/16, the
+    hardcoded GAT's (H,F), f32 and bf16), on random symmetric
     tables with isolated rows, with tied logits, residual and ELU on and
     off: the forward within GAT_FWD_TOL (bf16 output: 1 ulp beyond it), its
     sign mask bitwise and the serve variant (no stores) bitwise equal to the
@@ -433,6 +447,7 @@ def phase_gat_kernel_check(dev, N=8192, n_real=TRAIN_NODES, B=TRAIN_BATCH) -> di
         fused_gat_backward, fused_gat_backward_plain, fused_gat_forward,
         fused_gat_forward_plain, gat_reverse_combine, gat_reverse_combine_plain)
 
+    head_shapes = gat_head_shapes(gat_layers())
     rng = np.random.default_rng(SEED + 2)
     worst = {"gat_fwd": 0.0, "gat_bwd": 0.0, "gat_rev": 0.0}
     worst_abs = dict(worst)
@@ -444,7 +459,7 @@ def phase_gat_kernel_check(dev, N=8192, n_real=TRAIN_NODES, B=TRAIN_BATCH) -> di
         nbr_np, mask_np, rslot_np = symmetric_tables(rng, B, N, D, n_real=n_real)
         nbr, mask, rslot = (torch.from_numpy(a).to(dev)
                             for a in (nbr_np, mask_np, rslot_np))
-        for H, F in GAT_HEAD_SHAPES:
+        for H, F in head_shapes:
             for dtype in (torch.float32, torch.bfloat16):
                 x = gat_inputs(rng, B, N, H, F, dtype, dev)
                 bf16 = dtype == torch.bfloat16
@@ -1356,11 +1371,6 @@ def phase_train_timing(dataset, card) -> dict:
     return {"rows": rows, "referenced_rows": referenced, "B": B, "N": N, "D": D}
 
 
-# the hardcoded GAT's layers: (heads, features, activation, residual)
-GAT_LAYERS = [(4, 256, "elu", False), (4, 256, "elu", False),
-              (3, 256, "elu", True), (3, 256, "elu", False), (1, 4, None, False)]
-
-
 def gat_library_inputs(z, alpha, nbr, mask):
     """Inputs of F.embedding_bag(mode="sum", per_sample_weights=alpha) over
     the [B*N*H, F] view of z: one bag per (row, head) of its D slots, padded
@@ -1402,17 +1412,21 @@ def phase_gat_timing(dataset, card) -> dict:
     B, N, D = nbr.shape
     offs = (torch.arange(B, device=dev) * N).view(B, 1, 1)
     referenced = int(torch.unique((nbr + offs)[mask > 0]).numel())
+    # rows with a real slot: the backward reads gout only there (d_alpha
+    # is 0 on the others)
+    live_rows = int((mask > 0).any(dim=2).sum())
+    layers = gat_layers()
     rng = np.random.default_rng(SEED + 3)
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         es = torch.empty((), dtype=dtype).element_size()
-        for H, F in GAT_HEAD_SHAPES:
+        for H, F in gat_head_shapes(layers):
             x = gat_inputs(rng, B, N, H, F, dtype, dev)
             z, gout = x["z"], x["gout"]
             HF, DH = H * F, D * H
-            _, alpha, pos = fused_gat_forward(z, x["el"], x["er"], nbr, mask,
-                                              save=True)
+            _, alpha, pos = fused_gat_forward(z, x["el"], x["er"], nbr, mask, 0.2,
+                                              None, None, x["bias"], save=True)
             d_pre, _ = fused_gat_backward(gout, z, alpha, pos, nbr, mask)
             lib_ms = None
             if dtype == torch.float32:
@@ -1421,6 +1435,8 @@ def phase_gat_timing(dataset, card) -> dict:
                                                    per_sample_weights=w,
                                                    padding_idx=pad)
                 combine, _, _ = fused_gat_forward(z, x["el"], x["er"], nbr, mask,
+                                                  0.2, None, None,
+                                                  torch.zeros_like(x["bias"]),
                                                   save=False)
                 lib_err = within(library().reshape(B, N, H, F), combine)
                 lib_ms = time_device(library)
@@ -1435,7 +1451,7 @@ def phase_gat_timing(dataset, card) -> dict:
             ref_rows = referenced * HF * es
             fwd_in = ref_rows + 2 * B * N * H * es + 2 * table + HF * es
             timings = {}
-            for act, with_res in sorted({(a, r) for h, f, a, r in GAT_LAYERS
+            for act, with_res in sorted({(a, r) for h, f, a, r in layers
                                          if (h, f) == (H, F)}, key=str):
                 res = x["res"] if with_res else None
                 args = (z, x["el"], x["er"], nbr, mask, 0.2, act, res, x["bias"])
@@ -1451,7 +1467,7 @@ def phase_gat_timing(dataset, card) -> dict:
             timings[("gat_bwd", None, False)] = (
                 lambda: fused_gat_backward(gout, z, alpha, pos, nbr, mask),
                 lambda: fused_gat_backward_plain(gout, z, alpha, pos, nbr, mask),
-                B * N * HF * es + ref_rows + slot * 5 + 2 * table
+                live_rows * HF * es + ref_rows + slot * 5 + 2 * table
                 + slot * 4 + B * N * H * 4)
             timings[("gat_rev", None, False)] = (
                 lambda: gat_reverse_combine(gout, alpha, d_pre, nbr, mask, rslot),
@@ -1471,17 +1487,19 @@ def phase_gat_timing(dataset, card) -> dict:
                     f"embedding_bag weighted sum) {row['library_ms']} ms; "
                     f"card: {card}")
             del x, z, gout, alpha, pos, d_pre
-    return {"rows": rows, "referenced_rows": referenced, "B": B, "N": N, "D": D}
+    return {"rows": rows, "layers": layers, "referenced_rows": referenced,
+            "live_rows": live_rows, "B": B, "N": N, "D": D}
 
 
-def gat_per_step(rows, kname, dtype="float32") -> dict:
+def gat_per_step(gtime, kname, dtype="float32") -> dict:
     """One GAT training step's (or serve request's, for gat_fwd_serve) sum
-    over the hardcoded GAT's five layers of a kernel's timing rows."""
+    over the hardcoded GAT's layers of a kernel's timing rows."""
+    rows = gtime["rows"]
     out = {}
     for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
         vals = [rows[(kname, dtype, h, f, *((a, r) if kname.startswith("gat_fwd")
                                               else (None, False)))][k]
-                for h, f, a, r in GAT_LAYERS]
+                for h, f, a, r in gtime["layers"]]
         out[k] = None if any(v is None for v in vals) else sum(vals)
     return out
 
@@ -1595,10 +1613,9 @@ def main() -> int:
                 "F.embedding_bag(mode='mean'/'sum', padding_idx)"),
         "fast_bf16": per_step(rows, gsmean_parts, "bfloat16"),
     }]
-    grows = gtime["rows"]
     gtable = f"B={gtime['B']}, N={gtime['N']}, D={gtime['D']}"
-    gat_layers = ("hardcoded GAT, 5 layers: (H,F) = (4,256) x2, (3,256) x2 "
-                  "(the third with its w_res residual), (1,4)")
+    gat_desc = ("hardcoded GAT, (H, F, activation, residual) per layer: "
+                + ", ".join(map(str, gtime["layers"])))
     kernels += [{
         "name": "gat_fwd",
         "route": "cuda",
@@ -1609,13 +1626,13 @@ def main() -> int:
                              "train": train_launches["gat_fwd"]},
         "max_abs_err": gat_worst["abs"]["gat_fwd"],
         "max_rel_err": gat_worst["rel"]["gat_fwd"],
-        **gat_per_step(grows, "gat_fwd"),
+        **gat_per_step(gtime, "gat_fwd"),
         "bound_by": "bytes",
         "per": (f"one GAT training step, f32, alpha and sign mask stored: "
-                f"{gat_layers}, {gtable}; library (partial): the combine "
+                f"{gat_desc}, {gtable}; library (partial): the combine "
                 "alone, F.embedding_bag(mode='sum', per_sample_weights=alpha)"),
-        "serve_variant_f32": gat_per_step(grows, "gat_fwd_serve"),
-        "fast_bf16": gat_per_step(grows, "gat_fwd", "bfloat16"),
+        "serve_variant_f32": gat_per_step(gtime, "gat_fwd_serve"),
+        "fast_bf16": gat_per_step(gtime, "gat_fwd", "bfloat16"),
     }, {
         "name": "gat_bwd",
         "route": "cuda",
@@ -1624,10 +1641,10 @@ def main() -> int:
         "launches": train_launches["gat_bwd"],
         "max_abs_err": gat_worst["abs"]["gat_bwd"],
         "max_rel_err": gat_worst["rel"]["gat_bwd"],
-        **gat_per_step(grows, "gat_bwd"),
+        **gat_per_step(gtime, "gat_bwd"),
         "bound_by": "bytes",
-        "per": f"one GAT training step, f32: {gat_layers}, {gtable}; no library call",
-        "fast_bf16": gat_per_step(grows, "gat_bwd", "bfloat16"),
+        "per": f"one GAT training step, f32: {gat_desc}, {gtable}; no library call",
+        "fast_bf16": gat_per_step(gtime, "gat_bwd", "bfloat16"),
     }, {
         "name": "gat_rev",
         "route": "cuda",
@@ -1635,10 +1652,10 @@ def main() -> int:
         "replaces": "gnn_tumor_seg_tpu/ops/pallas/fused_gat.py:238",
         "launches": train_launches["gat_rev"],
         "max_abs_err": gat_worst["abs"]["gat_rev"],
-        **gat_per_step(grows, "gat_rev"),
+        **gat_per_step(gtime, "gat_rev"),
         "bound_by": "bytes",
-        "per": f"one GAT training step, f32: {gat_layers}, {gtable}; no library call",
-        "fast_bf16": gat_per_step(grows, "gat_rev", "bfloat16"),
+        "per": f"one GAT training step, f32: {gat_desc}, {gtable}; no library call",
+        "fast_bf16": gat_per_step(gtime, "gat_rev", "bfloat16"),
     }]
     check(serve["gat"]["launches"] > 0, "gat_fwd was never launched on the serve path")
     log("[train] step: " + json.dumps(

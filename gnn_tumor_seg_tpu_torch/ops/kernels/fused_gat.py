@@ -41,8 +41,6 @@ __all__ = ["fused_gat_forward", "fused_gat_forward_plain", "fused_gat_backward",
            "FusedGatAttention", "ACTIVATIONS", "build"]
 
 _NEG_LARGE = -1e30
-_MAX_DEGREE = 128
-_MAX_HEADS = 16
 ACTIVATIONS = (None, "elu")
 _SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                        "fused_gat.cu")
@@ -80,11 +78,11 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx.long()[..., None].expand(*idx.shape, W))
 
 
-def fused_gat_forward_plain(z, el, er, nbr, nbr_mask, slope=0.2, act=None,
-                            res=None, bias=None, save=True):
+def fused_gat_forward_plain(z, el, er, nbr, nbr_mask, slope, act, res, bias,
+                            save=True):
     """Plain PyTorch version of the forward: z [B,N,H,F], el/er [B,N,H]
     (z's dtype), nbr int32 and nbr_mask float32 [B,N,D], res [B,N,H*F] or
-    None, bias [H*F] or None -> (out [B,N,H,F] in z's dtype, alpha float32
+    None, bias [H*F] -> (out [B,N,H,F] in z's dtype, alpha float32
     [B,N,D*H], pos uint8 [B,N,D*H]); alpha and pos are None unless `save`.
 
     The kernel's arithmetic in its order: float32 throughout, the
@@ -114,9 +112,7 @@ def fused_gat_forward_plain(z, el, er, nbr, nbr_mask, slope=0.2, act=None,
         z_d = _gather_rows(zf, nbr[:, :, d]).to(f32).reshape(B, N, H, F)
         acc = acc + torch.where(valid[:, :, d, :, None],
                                 alpha[:, :, d, :, None] * z_d, zero)
-    v = acc.reshape(B, N, H * F)
-    if bias is not None:
-        v = v + bias.to(f32)
+    v = acc.reshape(B, N, H * F) + bias.to(f32)
     if res is not None:
         v = v + res.to(f32)
     if act == "elu":
@@ -211,11 +207,8 @@ def _check_common(x, nbr, nbr_mask, name: str) -> None:
     if nbr.dtype != torch.int32 or nbr_mask.dtype != torch.float32:
         raise TypeError(f"nbr must be int32 and nbr_mask float32, got "
                         f"{nbr.dtype}, {nbr_mask.dtype}")
-    if not 1 <= nbr.shape[2] <= _MAX_DEGREE:
-        raise ValueError(f"degree padding must be in [1, {_MAX_DEGREE}], "
-                         f"got {nbr.shape[2]}")
-    if not 1 <= x.shape[2] <= _MAX_HEADS:
-        raise ValueError(f"heads must be in [1, {_MAX_HEADS}], got {x.shape[2]}")
+    # the limits on degree and heads live in fused_gat.cu (check_dims): a
+    # launch beyond them fails with "invalid argument" in check_launch
     _check_tensors(x.device, [(x, name), (nbr, "nbr"), (nbr_mask, "nbr_mask")])
 
 
@@ -239,8 +232,8 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def fused_gat_forward(z, el, er, nbr, nbr_mask, slope=0.2, act=None,
-                      res=None, bias=None, save=True):
+def fused_gat_forward(z, el, er, nbr, nbr_mask, slope, act, res, bias,
+                      save=True):
     """(out, alpha, pos) as fused_gat_forward_plain; alpha and pos are None
     when `save` is False (serving and evaluation: the kernel then skips both
     stores). Not differentiable itself: training goes through
@@ -253,8 +246,6 @@ def fused_gat_forward(z, el, er, nbr, nbr_mask, slope=0.2, act=None,
     _check_common(z, nbr, nbr_mask, "z")
     B, N, H, F = z.shape
     D = nbr.shape[2]
-    if bias is None:
-        bias = torch.zeros(H * F, dtype=z.dtype, device=z.device)
     _check_like(el, (B, N, H), z.dtype, "el")
     _check_like(er, (B, N, H), z.dtype, "er")
     _check_like(bias, (H * F,), z.dtype, "bias")
