@@ -9,10 +9,11 @@ Phases; the first failure ends the run with a non-zero exit and no result:
 
 1. environment: torch, CUDA, triton, nvcc, and the card's name and power limit;
 2. build: the CUDA kernels max_agg.cu (max aggregation and its backward),
-   sum_agg.cu and fused_gat.cu (GAT's fused attention, its backward and the
-   reverse combine) (nvcc, sm_90a) and the native host library (g++), all
-   from the sources in this checkout, one compiler process each, in
-   parallel;
+   sum_agg.cu, fused_gat.cu (GAT's fused attention, its backward and the
+   reverse combine), weighted_sum.cu (the weighted combine, its reverse and
+   the pair dot) and slot_gather.cu (the per-slot gather and its backward)
+   (nvcc, sm_90a) and the native host library (g++), all from the sources in
+   this checkout, one compiler process each, in parallel;
 3. kernel check: max_agg against its plain PyTorch version on the card at
    random tables of the node bucket 8192 (B=1, D=12/16, F=20/256, f32 and
    bf16, with and without the winner-slot store) and at edge cases; then,
@@ -25,8 +26,13 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    rows, residual and ELU on and off; f32 and bf16): the forward within
    GAT_FWD_TOL of its plain version (bf16 output: one ulp beyond it), its
    sign mask and serve variant bitwise, the backward within GAT_BWD_TOL,
-   the reverse combine bitwise, each backward kernel deterministic; and
-   GAT with attention dropout must refuse to run on the card;
+   the reverse combine bitwise, each backward kernel deterministic. Then the
+   decomposed kernels at the training shapes, with weights that are not
+   symmetric and nonzero on padded slots: wsum and wsum_bwd at (H,F) =
+   (1,20), (1,256), (4,256), (3,256), (1,4) bitwise, pairdot within
+   PAIRDOT_TOL, slot_gather and slot_gather_bwd at W = 1, 3, 4, 12, 48
+   bitwise, every backward deterministic, and an edge case at D=128; and a
+   small GAT with attention dropout must train on the card;
 4. serve: one 240x240x155 synthetic brain written as NIfTI, GSpool [256]*6 and
    CNN 8->16->4 checkpoints from seeded weights in the JAX package's format,
    three requests through cli.predict_single.predict_single_mri under "exact"
@@ -58,14 +64,29 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    checkpoints must serve through load_gnn_from_checkpoint; on one batch in
    "exact" the parameter gradients through the kernels must equal those
    through the plain versions, bitwise for the three SAGE models and within
-   GAT_GRAD_TOL for GAT;
-7. training timing: the flagship GSpool step and the GAT step in "exact"
-   and "fast" (median step time, edges_per_s), torch.profiler over 3 more
-   steps of each (device busy and idle share, top kernels), and per kernel
-   at the batch's own table (B=6, N=8192, D=12): device time (CUDA-graph
-   replay), plain version, library yardstick (embedding_bag's sum and mean,
-   the backward alone of its max, and its max forward; for GAT's combine,
-   its weighted sum, a partial yardstick) and byte bound.
+   GAT_GRAD_TOL for GAT. Then the weighted cells: preprocess-weighted-2mri
+   (two 240x240x155 brains through cli.preprocess --weighted, then GSmean
+   one fast epoch on that store through cli.train_gnn), and
+   train-gsmean-weighted-b6 (the same 6 graphs with intensity edge weights,
+   sigma 0.1: GSmean and GSgcn [256]*6, 3 fast epochs with a falling loss
+   and 1 exact, 7 wsum and 6 wsum_bwd per step, 7 wsum per evaluation
+   batch, no pairdot and no sum_agg; gradients bitwise equal to the plain
+   path's); and train-gat-attndrop-b6 (the hardcoded GAT with attn_drop=0.1
+   through GNNTrainer: 5 slot_gather, 5 wsum, 5 wsum_bwd, 5 pairdot and 5
+   slot_gather_bwd per step, 3 fast epochs with a falling loss and 1 exact;
+   gradients within GAT_GRAD_TOL of the plain path's under one generator
+   seed);
+7. training timing: the flagship GSpool step, the GAT step, the weighted
+   GSmean step and the GAT step with attention dropout in "exact" and
+   "fast" (median step time, edges_per_s), torch.profiler over 3 more steps
+   of each (device busy and idle share, top kernels), and per kernel at the
+   batch's own table (B=6, N=8192, D=12): device time (CUDA-graph replay),
+   plain version, library yardstick (embedding_bag's sum and mean, the
+   backward alone of its max, and its max forward; for GAT's combine, its
+   weighted sum, a partial yardstick; for wsum, wsum_bwd and pairdot the
+   weighted embedding_bag's forward, its weight backward and its
+   per-sample-weight backward; for slot_gather and slot_gather_bwd
+   F.embedding and its backward) and byte bound.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; before it, one JSON line lists the kernels. The last line is
@@ -188,7 +209,9 @@ def phase_build() -> None:
     """Every library from its source, one compiler process each, all started
     together."""
     from gnn_tumor_seg_tpu_torch.data import native
-    from gnn_tumor_seg_tpu_torch.ops.kernels import fused_gat, max_agg, sum_agg
+    from gnn_tumor_seg_tpu_torch.ops.kernels import (fused_gat, max_agg,
+                                                     slot_gather, sum_agg,
+                                                     weighted_sum)
 
     def timed(fn):
         t = time.perf_counter()
@@ -198,6 +221,8 @@ def phase_build() -> None:
     jobs = {"max_agg.cu (nvcc sm_90a)": max_agg.build,
             "sum_agg.cu (nvcc sm_90a)": sum_agg.build,
             "fused_gat.cu (nvcc sm_90a)": fused_gat.build,
+            "weighted_sum.cu (nvcc sm_90a)": weighted_sum.build,
+            "slot_gather.cu (nvcc sm_90a)": slot_gather.build,
             "gts_native.cc (g++)": native.build}
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(timed, fn) for name, fn in jobs.items()}
@@ -537,9 +562,114 @@ def phase_gat_kernel_check(dev, N=8192, n_real=TRAIN_NODES, B=TRAIN_BATCH) -> di
     return {"rel": worst, "abs": worst_abs}
 
 
-def check_gat_dropout_refused(dev) -> None:
-    """GAT with attention dropout in training needs kernels 7 and 9 (not
-    ported): on the card it must raise and name them."""
+# pairdot against its plain version, relative to the largest |score|: the
+# kernel's dot over F runs in lanes and a shuffle tree, torch in its own order
+PAIRDOT_TOL = 1e-6
+DECOMPOSED_SHAPES = [(1, 20), (1, 256), (4, 256), (3, 256), (1, 4)]
+SLOT_WIDTHS = [1, 3, 4, 12, 48]
+
+
+def phase_decomposed_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
+                                  B=TRAIN_BATCH) -> dict:
+    """The weighted combine (wsum), its reverse (wsum_bwd), the pair dot
+    (pairdot) and the slot gather with its backward against their plain
+    versions on the card at the training shapes (B=6, N=8192 of which 7000
+    real, D=12/16, f32 and bf16), on random symmetric tables with isolated
+    rows and with weights that are not symmetric and nonzero on padded slots:
+    wsum and wsum_bwd at DECOMPOSED_SHAPES bitwise, pairdot within
+    PAIRDOT_TOL of the largest value, slot_gather and slot_gather_bwd at
+    SLOT_WIDTHS bitwise; two runs of every backward bitwise equal; then an
+    edge case at D=128. Returns the largest difference per kernel, relative
+    ("rel") and absolute ("abs")."""
+    from gnn_tumor_seg_tpu_torch.ops.kernels.slot_gather import (
+        slot_gather, slot_gather_backward, slot_gather_backward_plain,
+        slot_gather_plain)
+    from gnn_tumor_seg_tpu_torch.ops.kernels.weighted_sum import (
+        pairdot, pairdot_plain, weighted_sum, weighted_sum_plain,
+        weighted_sum_reverse, weighted_sum_reverse_plain)
+
+    rng = np.random.default_rng(SEED + 4)
+    names = ("wsum", "wsum_bwd", "pairdot", "slot_gather", "slot_gather_bwd")
+    worst = {k: 0.0 for k in names}
+    worst_abs = dict(worst)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(dtype)
+
+    def same(kernel, got, want, again, tag):
+        err = (got.float() - want.float()).abs().max().item()
+        worst_abs[kernel] = max(worst_abs[kernel], err)
+        worst[kernel] = max(worst[kernel], within(got, want))
+        check(torch.equal(_bits(got), _bits(want)),
+              f"{kernel} differs from its plain version ({tag}): max abs {err}")
+        check(again is None or torch.equal(_bits(got), _bits(again)),
+              f"{kernel} is not deterministic ({tag})")
+
+    def run_case(B, N, D, n_real, shapes, widths, dtypes):
+        nbr_np, mask_np, rslot_np = symmetric_tables(rng, B, N, D, n_real=n_real)
+        nbr, mask, rslot = (torch.from_numpy(a).to(dev)
+                            for a in (nbr_np, mask_np, rslot_np))
+        for H, F in shapes:
+            w = t(rng.normal(size=(B, N, D, H)))     # padded slots too
+            v32 = rng.normal(size=(B, N, H, F))
+            g32 = rng.normal(size=(B, N, H, F))
+            for dtype in dtypes:
+                tag = f"B={B} N={N} D={D} H={H} F={F} {str(dtype)[6:]}"
+                values, gout = t(v32, dtype), t(g32, dtype)
+                same("wsum", weighted_sum(values, w, nbr, mask),
+                     weighted_sum_plain(values, w, nbr, mask),
+                     weighted_sum(values, w, nbr, mask), tag)
+                same("wsum_bwd", weighted_sum_reverse(gout, w, nbr, mask, rslot),
+                     weighted_sum_reverse_plain(gout, w, nbr, mask, rslot),
+                     weighted_sum_reverse(gout, w, nbr, mask, rslot), tag)
+                got = pairdot(gout, values, nbr, mask)
+                want = pairdot_plain(gout, values, nbr, mask)
+                err = within(got, want)
+                worst["pairdot"] = max(worst["pairdot"], err)
+                worst_abs["pairdot"] = max(worst_abs["pairdot"], (
+                    got - want).abs().max().item())
+                check(err <= PAIRDOT_TOL, f"pairdot differs from its plain "
+                      f"version ({tag}): {err:.3g} of the largest value")
+                check(torch.equal(got, pairdot(gout, values, nbr, mask)),
+                      f"pairdot is not deterministic ({tag})")
+                check(not got[mask == 0].any(), f"pairdot nonzero on a padded "
+                      f"slot ({tag})")
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                log(f"[kernel] {tag}: wsum and wsum_bwd bitwise, pairdot within "
+                    f"{PAIRDOT_TOL}, backward kernels deterministic")
+        for W in widths:
+            x32 = rng.normal(size=(B, N, W))
+            g32 = rng.normal(size=(B, N, D, W))
+            for dtype in dtypes:
+                tag = f"B={B} N={N} D={D} W={W} {str(dtype)[6:]}"
+                x, gout = t(x32, dtype), t(g32, dtype)
+                same("slot_gather", slot_gather(x, nbr, mask),
+                     slot_gather_plain(x, nbr, mask), None, tag)
+                same("slot_gather_bwd",
+                     slot_gather_backward(gout, nbr, mask, rslot),
+                     slot_gather_backward_plain(gout, nbr, mask, rslot),
+                     slot_gather_backward(gout, nbr, mask, rslot), tag)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            log(f"[kernel] B={B} N={N} D={D} W={W}: slot_gather and "
+                f"slot_gather_bwd bitwise (f32, bf16), backward deterministic")
+
+    both = (torch.float32, torch.bfloat16)
+    for D in (12, 16):
+        run_case(B, N, D, n_real, DECOMPOSED_SHAPES, SLOT_WIDTHS, both)
+    # the largest degree bucket, 6 heads, F=2, N not a multiple of any
+    # block's rows
+    run_case(2, 777, 128, 700, [(6, 2)], [5], (torch.float32,))
+    log(f"[kernel] decomposed kernels against plain, largest difference "
+        f"relative to the largest value: {worst}; absolute: {worst_abs}")
+    return {"rel": worst, "abs": worst_abs}
+
+
+def check_gat_dropout_trains(dev) -> None:
+    """A small GAT with attention dropout takes the decomposed path on the
+    card: finite logits and a backward through the slot gather, the
+    weighted combine and their gradients."""
     from gnn_tumor_seg_tpu_torch.models.gat import GAT
     from gnn_tumor_seg_tpu_torch.ops.graph import graph_from_arrays
 
@@ -548,14 +678,22 @@ def check_gat_dropout_refused(dev) -> None:
     dst = np.array([1, 0, 2, 1])
     graph = graph_from_arrays(np.ones((3, IN_FEATS), np.float32), src, dst,
                               rslot=True).to(dev)
-    try:
-        model(graph, train=True)
-    except NotImplementedError as e:
-        check("_wsum_kernel" in str(e) and "_slot_gather_kernel" in str(e),
-              f"attention dropout refused without naming its kernels: {e}")
-        log(f"[kernel] GAT attention dropout on {dev} refused: {e}")
-        return
-    raise SmokeFailure("GAT attention dropout ran on the card")
+    read = _reset_counts()
+    logits = model(graph, train=True,
+                   generator=torch.Generator(device=dev).manual_seed(SEED))
+    logits.sum().backward()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    counts = read()
+    check(bool(torch.isfinite(logits).all()), "GAT attention dropout: "
+          "non-finite logits")
+    want = ({**NO_LAUNCHES, "slot_gather": 2, "wsum": 2, "wsum_bwd": 2,
+             "pairdot": 2, "slot_gather_bwd": 2} if dev.type == "cuda"
+            else NO_LAUNCHES)
+    check(counts == want, f"GAT attention dropout: launches {counts}, "
+          f"expected {want}")
+    log(f"[kernel] GAT attention dropout trains on {dev}: finite logits, "
+        f"launches {counts}")
 
 
 # ---------------------------------------------------------------------------
@@ -565,10 +703,13 @@ def check_gat_dropout_refused(dev) -> None:
 
 @contextlib.contextmanager
 def plain_aggregation():
-    """Route every kernel (aggregation and GAT attention, forward and
-    backward) through its plain version for a comparison run on the card;
+    """Route every kernel (aggregation, GAT attention, the weighted combine,
+    the pair dot and the slot gather, forward and backward) through its
+    plain version for a comparison run on the card;
     the port itself never does this on a CUDA tensor."""
-    from gnn_tumor_seg_tpu_torch.ops.kernels import fused_gat, max_agg, sum_agg
+    from gnn_tumor_seg_tpu_torch.ops.kernels import (fused_gat, max_agg,
+                                                     slot_gather, sum_agg,
+                                                     weighted_sum)
 
     def plain_max(h, nbr, nbr_mask, with_arg=True):
         out, arg = max_agg.max_aggregate_plain(h, nbr, nbr_mask)
@@ -581,7 +722,14 @@ def plain_aggregation():
              (fused_gat, "fused_gat_forward", fused_gat.fused_gat_forward_plain),
              (fused_gat, "fused_gat_backward", fused_gat.fused_gat_backward_plain),
              (fused_gat, "gat_reverse_combine",
-              fused_gat.gat_reverse_combine_plain)]
+              fused_gat.gat_reverse_combine_plain),
+             (weighted_sum, "weighted_sum", weighted_sum.weighted_sum_plain),
+             (weighted_sum, "weighted_sum_reverse",
+              weighted_sum.weighted_sum_reverse_plain),
+             (weighted_sum, "pairdot", weighted_sum.pairdot_plain),
+             (slot_gather, "slot_gather", slot_gather.slot_gather_plain),
+             (slot_gather, "slot_gather_backward",
+              slot_gather.slot_gather_backward_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -981,12 +1129,16 @@ def flagship_sample(rng, n_nodes, k=TRAIN_K, f_dim=IN_FEATS):
             np.concatenate([dst, src]), labels.astype(np.int32))
 
 
-def write_train_data(root: str, n_samples: int = TRAIN_BATCH) -> None:
+def write_train_data(root: str, n_samples: int = TRAIN_BATCH,
+                     weighted: bool = False) -> None:
     """A preprocessed data directory of the training cell: per sample the
     graph (.npz) and a small supervoxel and label volume (one voxel per node
-    plus a background margin), so that evaluate runs."""
+    plus a background margin), so that evaluate runs. `weighted` attaches
+    the intensity edge weights of data/graph_build (sigma 0.1), as
+    cli.preprocess --weighted does."""
     from gnn_tumor_seg_tpu_torch.data import nifti, store
-    from gnn_tumor_seg_tpu_torch.data.graph_build import GraphSample
+    from gnn_tumor_seg_tpu_torch.data.graph_build import (GraphSample,
+                                                          intensity_edge_weights)
     from gnn_tumor_seg_tpu_torch.data.image import project_nodes_to_img
 
     rng = np.random.default_rng(SEED)
@@ -998,7 +1150,9 @@ def write_train_data(root: str, n_samples: int = TRAIN_BATCH) -> None:
         os.makedirs(d)
         store.save_graph_npz(os.path.join(d, f"{mri_id}_graph.npz"), GraphSample(
             feats=feats, labels=labels, centroids=np.zeros((len(feats), 3)),
-            src=src, dst=dst, sv_partition=None))
+            src=src, dst=dst, sv_partition=None,
+            edge_weights=(intensity_edge_weights(feats, src, dst, sigma=0.1)
+                          if weighted else None)))
         sv = np.arange(np.prod(vol_shape)).reshape(vol_shape)
         sv = np.where(sv < len(feats), sv, -1).astype(np.int16)
         nifti.save_as_nifti(sv, os.path.join(d, f"{mri_id}_supervoxels.nii.gz"))
@@ -1007,7 +1161,8 @@ def write_train_data(root: str, n_samples: int = TRAIN_BATCH) -> None:
 
 
 NO_LAUNCHES = {k: 0 for k in ("max_agg", "max_agg_bwd", "sum_agg", "gat_fwd",
-                               "gat_bwd", "gat_rev")}
+                               "gat_bwd", "gat_rev", "wsum", "wsum_bwd",
+                               "pairdot", "slot_gather", "slot_gather_bwd")}
 
 
 def _reset_counts():
@@ -1017,22 +1172,30 @@ def _reset_counts():
         fused_gat_backward, fused_gat_forward, gat_reverse_combine)
     from gnn_tumor_seg_tpu_torch.ops.kernels.max_agg import (
         max_aggregate, max_aggregate_backward)
+    from gnn_tumor_seg_tpu_torch.ops.kernels.slot_gather import (
+        slot_gather, slot_gather_backward)
     from gnn_tumor_seg_tpu_torch.ops.kernels.sum_agg import sum_aggregate
+    from gnn_tumor_seg_tpu_torch.ops.kernels.weighted_sum import (
+        pairdot, weighted_sum, weighted_sum_reverse)
 
     fns = {"max_agg": max_aggregate, "max_agg_bwd": max_aggregate_backward,
            "sum_agg": sum_aggregate, "gat_fwd": fused_gat_forward,
-           "gat_bwd": fused_gat_backward, "gat_rev": gat_reverse_combine}
+           "gat_bwd": fused_gat_backward, "gat_rev": gat_reverse_combine,
+           "wsum": weighted_sum, "wsum_bwd": weighted_sum_reverse,
+           "pairdot": pairdot, "slot_gather": slot_gather,
+           "slot_gather_bwd": slot_gather_backward}
     for fn in fns.values():
         fn.launches = 0
     return lambda: {k: fn.launches for k, fn in fns.items()}
 
 
 def train_cli_run(data_dir, out_dir, run, model_type, n_epochs, precision,
-                  card, device="cuda") -> dict:
+                  card, device="cuda", weighted=False) -> dict:
     """One run of cli.train_gnn.main (-k 1), with every kernel count set to
     0 just before it and read just after. On the card, checks the per-step
-    launches; returns the epochs' log records and the counts. On the CPU (a
-    rehearsal) no kernel is launched."""
+    launches (`weighted`: the data directory carries edge weights); returns
+    the epochs' log records and the counts. On the CPU (a rehearsal) no
+    kernel is launched."""
     from gnn_tumor_seg_tpu_torch.cli import train_gnn
 
     hp = _train_hp(model_type)
@@ -1069,6 +1232,12 @@ def train_cli_run(data_dir, out_dir, run, model_type, n_epochs, precision,
         # every layer's z needs a gradient (through w): 5 + 5 + 5 per step
         want.update(gat_fwd=layers * (steps + eval_batches),
                     gat_bwd=layers * steps, gat_rev=layers * steps)
+    elif weighted:
+        # the weighted combine: 7 forward + 6 reverse per step (the first
+        # layer's input needs no gradient); the edge weights are data, so no
+        # pair dot, and the kernel reads the reverse weights through rslot
+        want.update(wsum=layers * (steps + eval_batches),
+                    wsum_bwd=(layers - 1) * steps)
     else:
         # the first layer's input needs no gradient: 7 forward + 6 backward
         want.update(sum_agg=(2 * layers - 1) * steps + layers * eval_batches)
@@ -1086,13 +1255,16 @@ def train_cli_run(data_dir, out_dir, run, model_type, n_epochs, precision,
     return {"epochs": epochs, "counts": counts, "steps": steps}
 
 
-def grads_match_plain(dataset, model_type, card, device="cuda") -> float:
+def grads_match_plain(dataset, model_type, card, device="cuda",
+                      attn_drop=0.0) -> float:
     """One batch in exact mode: the parameter gradients through the kernels
     equal those through the plain versions, bitwise for the SAGE models (the
     kernels are bitwise equal to their plain versions and the rest is the
     same code); for GAT within GAT_GRAD_TOL of each tensor's largest entry
-    (the fused forward and backward are held to a tolerance, not bitwise).
-    Returns the largest relative difference."""
+    (the fused forward and backward, and the pair dot, are held to a
+    tolerance, not bitwise). Both runs draw their dropout from a generator
+    seeded alike, so they share every keep-mask. Returns the largest
+    relative difference."""
     from gnn_tumor_seg_tpu_torch.ops.graph import batch_graphs
     from gnn_tumor_seg_tpu_torch.ops.precision import precision_scope
     from gnn_tumor_seg_tpu_torch.train.gnn_trainer import GNNTrainer
@@ -1100,12 +1272,14 @@ def grads_match_plain(dataset, model_type, card, device="cuda") -> float:
 
     hp = _train_hp(model_type)
     trainer = GNNTrainer(model_type, hp, dataset, seed=SEED, device=device)
+    trainer.model.attn_drop = attn_drop
     batch = batch_graphs([dataset.get_graph(i) for i in range(len(dataset))]).to(device)
     params = trainer.model.jax_parameters()
 
     def grads():
+        gen = torch.Generator(device=device).manual_seed(SEED)
         with precision_scope("exact"):
-            logits = trainer.model(batch, train=True)
+            logits = trainer.model(batch, train=True, generator=gen)
             loss = weighted_cross_entropy(logits, batch.labels,
                                           trainer.class_weights, batch.node_mask)
             return torch.autograd.grad(loss, params)
@@ -1114,17 +1288,20 @@ def grads_match_plain(dataset, model_type, card, device="cuda") -> float:
     with plain_aggregation():
         plain = grads()
     rel = max(within(a, b) for a, b in zip(kern, plain))
+    name = model_type + (f" attn_drop={attn_drop}" if attn_drop else "")
+    if batch.edge_weight is not None:
+        name += " weighted"
     if model_type == "GAT":
         check(rel <= GAT_GRAD_TOL,
-              f"GAT: parameter gradients through the kernels differ from the "
-              f"plain path's by {rel:.3g} of a tensor's largest entry")
+              f"{name}: parameter gradients through the kernels differ from "
+              f"the plain path's by {rel:.3g} of a tensor's largest entry")
         how = f"within {rel:.3g} (tolerance {GAT_GRAD_TOL}) of"
     else:
         check(all(torch.equal(a, b) for a, b in zip(kern, plain)),
-              f"{model_type}: parameter gradients through the kernels differ "
+              f"{name}: parameter gradients through the kernels differ "
               f"from the plain aggregation's ({rel:.3g} relative)")
         how = "bitwise equal to"
-    log(f"[train] {model_type} exact: parameter gradients through the kernels "
+    log(f"[train] {name} exact: parameter gradients through the kernels "
         f"{how} the plain path's ({len(params)} tensors); card: {card}")
     return rel
 
@@ -1192,6 +1369,137 @@ def phase_train(tmp: str, card: str, device="cuda") -> dict:
     return {"runs": runs, "data_dir": data_dir, "gat_grad_rel": grads["GAT"]}
 
 
+def write_brats_folder(root: str, shape=BRAIN_SHAPE, seeds=(0, 1)) -> None:
+    """Synthetic labelled brains (make_brain, one seed each) as a BraTS
+    folder: BraTS_<i>/BraTS_<i>_{flair,t1,t1ce,t2,seg}.nii.gz."""
+    from gnn_tumor_seg_tpu_torch.data import nifti
+
+    for i, seed in enumerate(seeds):
+        mri_id = f"BraTS_{i:03d}"
+        d = os.path.join(root, mri_id)
+        os.makedirs(d)
+        mods, labels = make_brain(np.random.default_rng(seed), shape)
+        for name, vol in zip(("flair", "t1", "t1ce", "t2", "seg"), (*mods, labels)):
+            nifti.save_as_nifti(vol, os.path.join(d, f"{mri_id}_{name}.nii.gz"))
+
+
+def phase_preprocess_weighted(tmp: str, card: str, device="cuda",
+                              shape=BRAIN_SHAPE, num_nodes=NUM_NODES) -> dict:
+    """The cell preprocess-weighted-2mri: two synthetic brains through
+    cli.preprocess --weighted (host), then one fast epoch of GSmean [256]*6
+    on that store through cli.train_gnn. The store must hold edge weights;
+    the run must launch wsum and wsum_bwd and never sum_agg, with a finite
+    loss."""
+    from gnn_tumor_seg_tpu_torch.cli import preprocess
+
+    raw, store = os.path.join(tmp, "raw"), os.path.join(tmp, "weighted_store")
+    t = time.perf_counter()
+    write_brats_folder(raw, shape)
+    log(f"[preprocess] wrote 2 brains {shape} in {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    preprocess.main(["-d", raw, "-o", store, "--weighted", "-n", str(num_nodes),
+                     "-k", "10", "-l", "_seg.nii.gz"])
+    prep_s = time.perf_counter() - t
+    ids = sorted(os.listdir(store))
+    check(ids == ["BraTS_000", "BraTS_001"], f"preprocessed samples {ids}")
+    sizes = []
+    for mri_id in ids:
+        with np.load(os.path.join(store, mri_id, f"{mri_id}_graph.npz")) as z:
+            check("edge_weights" in z.files, f"{mri_id}: no edge_weights in the store")
+            w = z["edge_weights"]
+            check(len(w) == len(z["src"]) > 0 and bool(np.isfinite(w).all()),
+                  f"{mri_id}: edge weights {w.shape}")
+            sizes.append((len(z["feats"]), len(w)))
+    log(f"[preprocess] cli.preprocess --weighted: {prep_s:.2f} s for 2 brains, "
+        f"(nodes, edges) {sizes}; card: {card}")
+    out_dir = os.path.join(tmp, "weighted_logs")
+    run = train_cli_run(store, out_dir, "prep_gsmean", "GSmean", 1, "fast", card,
+                        device, weighted=True)
+    if device == "cuda":
+        counts = run["counts"]
+        check(counts["wsum"] > 0 and counts["wsum_bwd"] > 0
+              and counts["sum_agg"] == 0, f"weighted store run: {counts}")
+    return {"run": run, "preprocess_s": prep_s, "sizes": sizes}
+
+
+def phase_train_weighted(tmp: str, card: str, device="cuda") -> dict:
+    """The cell train-gsmean-weighted-b6: the 6 graphs of the training cell
+    with intensity edge weights (sigma 0.1); GSmean and GSgcn [256]*6 through
+    cli.train_gnn, 3 fast epochs (the loss must fall) and 1 exact each, with
+    their launch counts checked per step; then the parameter gradients
+    through the kernels on one exact batch, bitwise equal to the plain
+    path's."""
+    from gnn_tumor_seg_tpu_torch.data.dataset import ImageGraphDataset
+
+    data_dir = os.path.join(tmp, "train_weighted")
+    out_dir = os.path.join(tmp, "train_weighted_logs")
+    write_train_data(data_dir, weighted=True)
+    plan = [("gsmean_w_fast", "GSmean", 3, "fast"),
+            ("gsmean_w_exact", "GSmean", 1, "exact"),
+            ("gsgcn_w_fast", "GSgcn", 3, "fast"),
+            ("gsgcn_w_exact", "GSgcn", 1, "exact")]
+    runs = {run: train_cli_run(data_dir, out_dir, run, model_type, epochs,
+                               precision, card, device, weighted=True)
+            for run, model_type, epochs, precision in plan}
+    for run in ("gsmean_w_fast", "gsgcn_w_fast"):
+        losses = [e["loss"] for e in runs[run]["epochs"]]
+        check(losses[-1] < losses[0], f"{run}: loss did not fall: {losses}")
+    dataset = ImageGraphDataset(data_dir, read_image=False)
+    check(dataset.get_graph(0).edge_weight is not None, "weighted cell without "
+          "edge weights")
+    for model_type in ("GSmean", "GSgcn"):
+        grads_match_plain(dataset, model_type, card, device)
+    return {"runs": runs, "data_dir": data_dir}
+
+
+GAT_ATTN_DROP = 0.1
+
+
+def gat_dropout_run(dataset, n_epochs, precision, card, device="cuda") -> dict:
+    """The hardcoded GAT with attention dropout GAT_ATTN_DROP trained through
+    GNNTrainer.run_epoch (forward with train=True, weighted CE, backward,
+    AdamW), with every kernel count set to 0 just before and read just
+    after; on the card 5 slot_gather, 5 wsum, 5 wsum_bwd, 5 pairdot and 5
+    slot_gather_bwd per step, and nothing else."""
+    from gnn_tumor_seg_tpu_torch.train.gnn_trainer import GNNTrainer
+
+    trainer = GNNTrainer("GAT", _train_hp("GAT"), dataset, seed=SEED,
+                         precision=precision, device=device)
+    trainer.model.attn_drop = GAT_ATTN_DROP
+    layers = trainer.model.num_layers
+    read = _reset_counts()
+    losses, steps = [], 0
+    t = time.perf_counter()
+    for _ in range(n_epochs):
+        losses.append(trainer.run_epoch())
+        steps += trainer.last_epoch_stats["steps"]
+    wall = time.perf_counter() - t
+    counts = read()
+    want = dict(NO_LAUNCHES)
+    if device == "cuda":
+        want.update({k: layers * steps for k in ("slot_gather", "wsum", "wsum_bwd",
+                                                 "pairdot", "slot_gather_bwd")})
+    check(counts == want, f"GAT attn_drop {precision}: launches {counts}, "
+          f"expected {want}")
+    check(all(np.isfinite(losses)), f"GAT attn_drop: non-finite losses {losses}")
+    log(f"[train] GAT attn_drop={GAT_ATTN_DROP} {precision}: {n_epochs} epochs x "
+        f"1 step, losses {losses}, launches {counts}, wall {wall:.2f} s; "
+        f"card: {card}")
+    return {"losses": losses, "counts": counts, "steps": steps}
+
+
+def phase_train_gat_dropout(dataset, card, device="cuda") -> dict:
+    """The cell train-gat-attndrop-b6: 3 fast epochs (the loss must fall)
+    and 1 exact, then the gradient check against the plain path."""
+    fast = gat_dropout_run(dataset, 3, "fast", card, device)
+    check(fast["losses"][-1] < fast["losses"][0],
+          f"GAT attn_drop loss did not fall: {fast['losses']}")
+    exact = gat_dropout_run(dataset, 1, "exact", card, device)
+    rel = grads_match_plain(dataset, "GAT", card, device, attn_drop=GAT_ATTN_DROP)
+    return {"runs": {"gat_drop_fast": fast, "gat_drop_exact": exact},
+            "grad_rel": rel}
+
+
 # ---------------------------------------------------------------------------
 # phase 7: training timing
 # ---------------------------------------------------------------------------
@@ -1223,19 +1531,25 @@ def profile_train_steps(trainer, card, steps: int = 3) -> dict:
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": idle, "top": top}
 
 
-def time_train_steps(dataset, card, model_type="GSpool", steps: int = 8) -> dict:
-    """A training step of the cell (GSpool [256]*6, or the hardcoded GAT;
-    batch 6 x 8192) through GNNTrainer.run_epoch, one step per epoch, in
-    "exact" and "fast": the median epoch wall time (host clock, ending in the
-    epoch's one synchronize) after 2 warm-up epochs, and edges_per_s (real
-    edges x layers / step time, bench.py:160-161); then 3 more steps under
-    the profiler for the idle share and the top kernels."""
+def time_train_steps(dataset, card, model_type="GSpool", steps: int = 8,
+                     attn_drop: float = 0.0) -> dict:
+    """A training step of a cell (GSpool [256]*6, GSmean [256]*6 on a
+    weighted dataset, or the hardcoded GAT, with attention dropout when
+    `attn_drop`; batch 6 x 8192) through GNNTrainer.run_epoch, one step per
+    epoch, in "exact" and "fast": the median epoch wall time (host clock,
+    ending in the epoch's one synchronize) after 2 warm-up epochs, and
+    edges_per_s (real edges x layers / step time, bench.py:160-161); then 3
+    more steps under the profiler for the idle share and the top kernels."""
     from gnn_tumor_seg_tpu_torch.train.gnn_trainer import GNNTrainer
 
+    name = model_type + (f" attn_drop={attn_drop}" if attn_drop else "")
+    if dataset.get_graph(0).edge_weight is not None:
+        name += " weighted"
     out = {}
     for precision in ("exact", "fast"):
         trainer = GNNTrainer(model_type, _train_hp(model_type), dataset,
                              seed=SEED, precision=precision, device="cuda")
+        trainer.model.attn_drop = attn_drop
         for _ in range(2):
             trainer.run_epoch()
         secs, eps = [], []
@@ -1246,7 +1560,7 @@ def time_train_steps(dataset, card, model_type="GSpool", steps: int = 8) -> dict
         out[precision] = {"step_ms": statistics.median(secs) * 1e3,
                           "edges_per_s": statistics.median(eps),
                           "step_ms_all": [round(x * 1e3, 3) for x in secs]}
-        log(f"[train-timing] {model_type} {precision} step: median "
+        log(f"[train-timing] {name} {precision} step: median "
             f"{out[precision]['step_ms']:.3f} ms over {steps} steps "
             f"{out[precision]['step_ms_all']}, edges_per_s "
             f"{out[precision]['edges_per_s']:.6g}; card: {card}")
@@ -1491,6 +1805,170 @@ def phase_gat_timing(dataset, card) -> dict:
             "live_rows": live_rows, "B": B, "N": N, "D": D}
 
 
+def bag_library_inputs(x, nbr, mask):
+    """Inputs of aten._embedding_bag over the [B*N*H, F] view of x [B,N,H,F]:
+    one bag per (row, head) of its D slots, padded slots naming an extra
+    zero row passed as padding_idx. A yardstick only; the port never calls
+    it."""
+    B, N, H, F = x.shape
+    D = nbr.shape[2]
+    offs = (torch.arange(B, device=x.device) * N).view(B, 1, 1)
+    rows = torch.where(mask > 0, nbr + offs, B * N)                 # [B,N,D]
+    heads = torch.arange(H, device=x.device).view(1, 1, 1, H)
+    idx = torch.where(rows[..., None] < B * N, rows[..., None] * H + heads,
+                      B * N * H)                                     # [B,N,D,H]
+    flat = idx.permute(0, 1, 3, 2).reshape(-1).contiguous()
+    weight = torch.cat([x.reshape(B * N * H, F), x.new_zeros(1, F)])
+    offsets = torch.arange(0, flat.numel(), D, device=x.device)
+    return flat, offsets, weight, B * N * H
+
+
+def phase_decomposed_timing(dataset, card) -> dict:
+    """The decomposed kernels at the training batch's own table (B=6,
+    N=8192, D=12), f32 and bf16: wsum, wsum_bwd and pairdot at
+    DECOMPOSED_SHAPES, slot_gather and slot_gather_bwd at the GAT's head
+    counts; device ms per launch (CUDA-graph replay), plain ms and the byte
+    bound, and for f32 the library yardstick: the weighted embedding_bag
+    (aten._embedding_bag, mode sum, per-sample weights) for wsum, its weight
+    backward (aten._embedding_bag_dense_backward, over the same weights
+    read through the bags) for wsum_bwd, its per-sample-weight backward
+    (aten._embedding_bag_per_sample_weights_backward) for pairdot,
+    F.embedding for slot_gather and its backward
+    (aten.embedding_dense_backward) for slot_gather_bwd: each one call that
+    computes the same function. These launches come after the main path's
+    counts were read and are not part of them."""
+    import torch.nn.functional as F_
+
+    from gnn_tumor_seg_tpu_torch.ops.graph import batch_graphs
+    from gnn_tumor_seg_tpu_torch.ops.kernels.slot_gather import (
+        slot_gather, slot_gather_backward, slot_gather_backward_plain,
+        slot_gather_plain)
+    from gnn_tumor_seg_tpu_torch.ops.kernels.weighted_sum import (
+        pairdot, pairdot_plain, weighted_sum, weighted_sum_plain,
+        weighted_sum_reverse, weighted_sum_reverse_plain)
+
+    dev = torch.device("cuda")
+    batch = batch_graphs([dataset.get_graph(i) for i in range(len(dataset))]).to(dev)
+    nbr, mask, rslot = batch.nbr, batch.nbr_mask, batch.rslot
+    B, N, D = nbr.shape
+    offs = (torch.arange(B, device=dev) * N).view(B, 1, 1)
+    referenced = int(torch.unique((nbr + offs)[mask > 0]).numel())
+    live_rows = int((mask > 0).any(dim=2).sum())
+    real = int((mask > 0).sum())
+    table = B * N * D * 4
+    aten = torch.ops.aten
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows, lib_err = {}, {}
+
+    def timed(key, kern, plain, lib, nbytes, tag):
+        row = {"ms": time_device(kern),
+               "plain_ms": time_device(plain, reps=5, inner=3),
+               "library_ms": None if lib is None else time_device(lib),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+        rows[key] = row
+        log(f"[dec-timing] {tag}: device {row['ms']:.5f} ms, bound "
+            f"{row['bound_ms']:.5f} ms ({nbytes} B), plain {row['plain_ms']:.5f} "
+            f"ms, library {row['library_ms']} ms; card: {card}")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        es = torch.empty((), dtype=dtype).element_size()
+        f32 = dtype == torch.float32
+        for H, F in DECOMPOSED_SHAPES:
+            HF = H * F
+            values = torch.randn((B, N, H, F), generator=gen, device=dev).to(dtype)
+            gout = torch.randn((B, N, H, F), generator=gen, device=dev).to(dtype)
+            w = torch.rand((B, N, D, H), generator=gen, device=dev)
+            libs = {"wsum": None, "wsum_bwd": None, "pairdot": None}
+            if f32:
+                flat, offsets, weight, pad = bag_library_inputs(values, nbr, mask)
+                psw = w.permute(0, 1, 3, 2).reshape(-1).contiguous()
+                _, o2b, bsz, mxi = aten._embedding_bag.default(
+                    weight, flat, offsets, False, 0, False, psw, False, pad)
+                g_flat = gout.reshape(B * N * H, F)
+                libs = {
+                    "wsum": lambda: aten._embedding_bag.default(
+                        weight, flat, offsets, False, 0, False, psw, False, pad),
+                    "wsum_bwd": lambda: aten._embedding_bag_dense_backward.default(
+                        g_flat, flat, o2b, bsz, mxi, pad + 1, False, 0, psw, pad),
+                    "pairdot": lambda: aten._embedding_bag_per_sample_weights_backward
+                    .default(g_flat, weight, flat, offsets, o2b, 0, pad)}
+                lib_err[("wsum", H, F)] = within(
+                    libs["wsum"]()[0].reshape(B, N, H, F),
+                    weighted_sum(values, w, nbr, mask))
+                lib_err[("wsum_bwd", H, F)] = within(
+                    libs["wsum_bwd"]()[:pad].reshape(B, N, H, F),
+                    weighted_sum_reverse(gout, w, nbr, mask, rslot))
+                lib_err[("pairdot", H, F)] = within(
+                    libs["pairdot"]().reshape(B, N, H, D).permute(0, 1, 3, 2),
+                    pairdot(gout, values, nbr, mask))
+            tag = f"B={B} N={N} D={D} H={H} F={F} {name}"
+            # compulsory bytes: each input read once (the referenced rows of
+            # a gathered tensor, the weights of real slots), each output
+            # written once
+            timed(("wsum", name, H, F),
+                  lambda: weighted_sum(values, w, nbr, mask),
+                  lambda: weighted_sum_plain(values, w, nbr, mask), libs["wsum"],
+                  referenced * HF * es + real * H * 4 + 2 * table
+                  + B * N * HF * es, f"wsum {tag}")
+            timed(("wsum_bwd", name, H, F),
+                  lambda: weighted_sum_reverse(gout, w, nbr, mask, rslot),
+                  lambda: weighted_sum_reverse_plain(gout, w, nbr, mask, rslot),
+                  libs["wsum_bwd"],
+                  referenced * HF * es + real * H * 4 + 3 * table
+                  + B * N * HF * es, f"wsum_bwd {tag}")
+            timed(("pairdot", name, H, F),
+                  lambda: pairdot(gout, values, nbr, mask),
+                  lambda: pairdot_plain(gout, values, nbr, mask), libs["pairdot"],
+                  live_rows * HF * es + referenced * HF * es + 2 * table
+                  + B * N * D * H * 4, f"pairdot {tag}")
+            del values, gout, w, libs
+        for W in sorted({h for h, _, _, _ in gat_layers()}):
+            x = torch.randn((B, N, W), generator=gen, device=dev).to(dtype)
+            g = torch.randn((B, N, D, W), generator=gen, device=dev).to(dtype)
+            lib_f = lib_b = None
+            if f32:
+                ridx = torch.where(mask > 0, nbr + offs, B * N).reshape(-1)
+                wt = torch.cat([x.reshape(B * N, W), x.new_zeros(1, W)])
+                g_rows = g.reshape(B * N * D, W)
+                lib_f = lambda: F_.embedding(ridx, wt, padding_idx=B * N)
+                lib_b = lambda: aten.embedding_dense_backward.default(
+                    g_rows, ridx, B * N + 1, B * N, False)
+                lib_err[("slot_gather", W)] = within(
+                    lib_f().reshape(B, N, D, W), slot_gather(x, nbr, mask))
+                lib_err[("slot_gather_bwd", W)] = within(
+                    lib_b()[:B * N].reshape(B, N, W),
+                    slot_gather_backward(g, nbr, mask, rslot))
+            tag = f"B={B} N={N} D={D} W={W} {name}"
+            timed(("slot_gather", name, W),
+                  lambda: slot_gather(x, nbr, mask),
+                  lambda: slot_gather_plain(x, nbr, mask), lib_f,
+                  referenced * W * es + 2 * table + B * N * D * W * es,
+                  f"slot_gather {tag}")
+            timed(("slot_gather_bwd", name, W),
+                  lambda: slot_gather_backward(g, nbr, mask, rslot),
+                  lambda: slot_gather_backward_plain(g, nbr, mask, rslot), lib_b,
+                  real * W * es + 3 * table + B * N * W * es,
+                  f"slot_gather_bwd {tag}")
+            del x, g
+    log(f"[dec-timing] library yardsticks against the kernels, largest "
+        f"difference relative to the largest value: "
+        f"{ {str(k): round(v, 9) for k, v in lib_err.items()} }")
+    return {"rows": rows, "referenced_rows": referenced, "live_rows": live_rows,
+            "real_slots": real, "B": B, "N": N, "D": D, "library_err": lib_err}
+
+
+def dec_per_step(dtime, parts, dtype="float32") -> dict:
+    """Sum the decomposed timing rows of `parts` ((key without the dtype,
+    launches) pairs) into one step's totals."""
+    out = {}
+    for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        vals = [(n, dtime["rows"][(key[0], dtype, *key[1:])][k]) for key, n in parts]
+        out[k] = (None if any(v is None for _, v in vals)
+                  else sum(n * v for n, v in vals))
+    return out
+
+
 def gat_per_step(gtime, kname, dtype="float32") -> dict:
     """One GAT training step's (or serve request's, for gat_fwd_serve) sum
     over the hardcoded GAT's layers of a kernel's timing rows."""
@@ -1534,24 +2012,34 @@ def main() -> int:
     worst = phase_kernel_check(dev)
     train_worst = phase_train_kernel_check(dev)
     gat_worst = phase_gat_kernel_check(dev)
-    check_gat_dropout_refused(dev)
+    dec_worst = phase_decomposed_kernel_check(dev)
+    check_gat_dropout_trains(dev)
     serve = phase_serve("cuda", card=card)
     timing = phase_timing(serve["graph"], card)
     worst = max(worst, timing["max_abs_err"], train_worst["max_agg"])
     with tempfile.TemporaryDirectory(prefix="gts_smoke_train_") as tmp:
         train = phase_train(tmp, card)
+        prep = phase_preprocess_weighted(tmp, card)
+        weighted = phase_train_weighted(tmp, card)
         from gnn_tumor_seg_tpu_torch.data.dataset import ImageGraphDataset
 
         dataset = ImageGraphDataset(train["data_dir"], read_image=False)
+        wdataset = ImageGraphDataset(weighted["data_dir"], read_image=False)
+        drop = phase_train_gat_dropout(dataset, card)
         step = time_train_steps(dataset, card)
         ttime = phase_train_timing(dataset, card)
         gat_step = time_train_steps(dataset, card, "GAT")
         gtime = phase_gat_timing(dataset, card)
-    runs = train["runs"]
-    train_launches = {k: sum(r["counts"][k] for r in runs.values())
-                      for k in NO_LAUNCHES}
+        wstep = time_train_steps(wdataset, card, "GSmean")
+        drop_step = time_train_steps(dataset, card, "GAT", attn_drop=GAT_ATTN_DROP)
+        dtime = phase_decomposed_timing(dataset, card)
+    paths = {"train": train["runs"], "preprocess_weighted": {"prep": prep["run"]},
+             "train_weighted": weighted["runs"], "train_gat_attndrop": drop["runs"]}
+    by_path = {path: {k: sum(r["counts"][k] for r in runs.values())
+                      for k in NO_LAUNCHES} for path, runs in paths.items()}
+    train_launches = {k: sum(c[k] for c in by_path.values()) for k in NO_LAUNCHES}
     for k, n in train_launches.items():
-        check(n > 0, f"{k} was never launched on the training path")
+        check(n > 0, f"{k} was never launched on the training paths")
     rows = ttime["rows"]
     wide, narrow = TRAIN_WIDTHS[0], IN_FEATS
     layers = [(narrow, 1), (wide, len(TRAIN_WIDTHS))]
@@ -1657,15 +2145,101 @@ def main() -> int:
         "per": f"one GAT training step, f32: {gat_desc}, {gtable}; no library call",
         "fast_bf16": gat_per_step(gtime, "gat_rev", "bfloat16"),
     }]
+    dtable = f"B={dtime['B']}, N={dtime['N']}, D={dtime['D']}"
+    wsum_step = [(("wsum", 1, IN_FEATS), 1),
+                 (("wsum", 1, TRAIN_WIDTHS[0]), len(TRAIN_WIDTHS))]
+    wsum_bwd_step = [(("wsum_bwd", 1, TRAIN_WIDTHS[0]), len(TRAIN_WIDTHS))]
+    glayers = gtime["layers"]
+
+    def drop_step_parts(kname):
+        if kname.startswith("slot_gather"):
+            return [((kname, h), 1) for h, _, _, _ in glayers]
+        return [((kname, h, f), 1) for h, f, _, _ in glayers]
+
+    def dec_launches(k):
+        return {"launches": train_launches[k],
+                "launches_by_path": {p: c[k] for p, c in by_path.items() if c[k]}}
+
+    gsmean_desc = (f"one weighted GSmean [256]*6 training step, f32: 1 launch at "
+                   f"(H,F)=(1,{IN_FEATS}) + 6 at (1,{TRAIN_WIDTHS[0]}), {dtable}")
+    drop_desc = (f"one GAT training step with attention dropout, f32: {gat_desc}, "
+                 f"{dtable}")
+    kernels += [{
+        "name": "wsum",
+        "route": "cuda",
+        "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/weighted_sum.cu",
+        "replaces": "gnn_tumor_seg_tpu/ops/pallas/weighted_sum.py:86",
+        **dec_launches("wsum"),
+        "max_abs_err": dec_worst["abs"]["wsum"],
+        **dec_per_step(dtime, wsum_step),
+        "bound_by": "bytes",
+        "per": (f"{gsmean_desc}; library: aten._embedding_bag (mode sum, "
+                "per-sample weights)"),
+        "gat_attndrop_step_f32": dec_per_step(dtime, drop_step_parts("wsum")),
+        "fast_bf16": dec_per_step(dtime, wsum_step, "bfloat16"),
+    }, {
+        "name": "wsum_bwd",
+        "route": "cuda",
+        "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/weighted_sum.cu",
+        "replaces": "gnn_tumor_seg_tpu/ops/pallas/weighted_sum.py:86",
+        **dec_launches("wsum_bwd"),
+        "max_abs_err": dec_worst["abs"]["wsum_bwd"],
+        **dec_per_step(dtime, wsum_bwd_step),
+        "bound_by": "bytes",
+        "per": (f"one weighted GSmean [256]*6 training step, f32: 6 launches at "
+                f"(1,{TRAIN_WIDTHS[0]}), reverse weights read through rslot, "
+                f"{dtable}; library: aten._embedding_bag_dense_backward (mode "
+                "sum, per-sample weights)"),
+        "gat_attndrop_step_f32": dec_per_step(dtime, drop_step_parts("wsum_bwd")),
+        "fast_bf16": dec_per_step(dtime, wsum_bwd_step, "bfloat16"),
+    }, {
+        "name": "pairdot",
+        "route": "cuda",
+        "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/weighted_sum.cu",
+        "replaces": "gnn_tumor_seg_tpu/ops/pallas/weighted_sum.py:144",
+        **dec_launches("pairdot"),
+        "max_abs_err": dec_worst["abs"]["pairdot"],
+        "max_rel_err": dec_worst["rel"]["pairdot"],
+        **dec_per_step(dtime, drop_step_parts("pairdot")),
+        "bound_by": "bytes",
+        "per": (f"{drop_desc}; library: "
+                "aten._embedding_bag_per_sample_weights_backward"),
+        "fast_bf16": dec_per_step(dtime, drop_step_parts("pairdot"), "bfloat16"),
+    }, {
+        "name": "slot_gather",
+        "route": "cuda",
+        "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/slot_gather.cu",
+        "replaces": "gnn_tumor_seg_tpu/ops/pallas/slot_gather.py:58",
+        **dec_launches("slot_gather"),
+        "max_abs_err": dec_worst["abs"]["slot_gather"],
+        **dec_per_step(dtime, drop_step_parts("slot_gather")),
+        "bound_by": "bytes",
+        "per": f"{drop_desc} (W = heads); library: F.embedding",
+        "fast_bf16": dec_per_step(dtime, drop_step_parts("slot_gather"), "bfloat16"),
+    }, {
+        "name": "slot_gather_bwd",
+        "route": "cuda",
+        "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/slot_gather.cu",
+        "replaces": "gnn_tumor_seg_tpu/ops/pallas/slot_gather.py:58",
+        **dec_launches("slot_gather_bwd"),
+        "max_abs_err": dec_worst["abs"]["slot_gather_bwd"],
+        **dec_per_step(dtime, drop_step_parts("slot_gather_bwd")),
+        "bound_by": "bytes",
+        "per": (f"{drop_desc} (W = heads); library: "
+                "aten.embedding_dense_backward"),
+        "fast_bf16": dec_per_step(dtime, drop_step_parts("slot_gather_bwd"),
+                                  "bfloat16"),
+    }]
     check(serve["gat"]["launches"] > 0, "gat_fwd was never launched on the serve path")
-    log("[train] step: " + json.dumps(
-        {mode: {k: v for k, v in row.items() if k != "profile"}
-         for mode, row in step.items()}))
-    log("[train] GAT step: " + json.dumps(
-        {mode: {k: v for k, v in row.items() if k != "profile"}
-         for mode, row in gat_step.items()})
-        + f"; gradients through the kernels within {train['gat_grad_rel']:.3g} "
-        f"of the plain path's")
+    for label, st in (("step", step), ("GAT step", gat_step),
+                      ("weighted GSmean step", wstep),
+                      (f"GAT attn_drop={GAT_ATTN_DROP} step", drop_step)):
+        log(f"[train] {label}: " + json.dumps(
+            {mode: {k: v for k, v in row.items() if k != "profile"}
+             for mode, row in st.items()}))
+    log(f"[train] gradients through the kernels within {train['gat_grad_rel']:.3g} "
+        f"(GAT) and {drop['grad_rel']:.3g} (GAT attn_drop) of the plain path's; "
+        f"launches by path: {json.dumps(by_path)}")
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -19,10 +19,13 @@ weighted combine and the epilogue are the fused Hopper kernels of
 ops/kernels/fused_gat.py on every layer, for training and serving alike.
 
 Attention dropout (attn_drop > 0 in training) needs alpha materialized: the
-JAX package then takes its decomposed path (gat.py:119-144), whose kernels
-(weighted_sum._wsum_kernel and slot_gather._slot_gather_kernel) are not
-ported yet. Here that path is the JAX dense one on the CPU, and it raises on
-CUDA. The factory never sets attn_drop.
+layer then takes the JAX package's decomposed path (gat.py:119-144). The
+slot gather of ops/kernels/slot_gather.py fetches each slot's el; the
+LeakyReLU, the masked slot softmax and the dropout are torch elementwise
+operations, as the JAX package leaves them to XLA; the weighted combine of
+ops/kernels/weighted_sum.py sums alpha z over the slots; the epilogue is
+torch again. Training through it needs the graph's `rslot`. The factory
+never sets attn_drop; set it on the model (GAT(..., attn_drop=p)).
 
 Under precision mode "fast" the layers run in bf16: activations and the
 per-use parameter casts are bf16, the master parameters stay float32, and
@@ -37,7 +40,7 @@ import torch
 from torch import nn
 
 from ..ops.graph import GraphBatch
-from ..ops.kernels import fused_gat
+from ..ops.kernels import fused_gat, slot_gather, weighted_sum
 from ..ops.precision import compute_dtype
 from .initializers import xavier_uniform
 from .sage import _dropout
@@ -98,27 +101,19 @@ class GatConv(nn.Module):
     @staticmethod
     def _decomposed(graph, z, el, er, res, bias, act, slope, attn_drop,
                     generator):
-        """The JAX dense path with attention dropout (gat.py:122-159);
-        autograd gives its gradient on the CPU."""
-        if z.device.type != "cpu":
-            raise NotImplementedError(
-                f"GAT attention dropout on {z.device} needs the ports of "
-                "weighted_sum._wsum_kernel and slot_gather._slot_gather_kernel "
-                "(ROADMAP.md, TPU kernels to port, rows 7 and 9)")
+        """The JAX decomposed path with attention dropout (gat.py:119-159):
+        the slot gather and the weighted combine are kernels on the card."""
         B, N, H, F = z.shape
-        D = graph.nbr.shape[2]
-        idx = graph.nbr.long().reshape(B, N * D, 1)
-        el_src = torch.gather(el, 1, idx.expand(B, N * D, H)).reshape(B, N, D, H)
-        mask = graph.nbr_mask[..., None]
+        nbr, mask = graph.nbr, graph.nbr_mask
+        el_src = slot_gather.gather_slots(el, nbr, mask, graph.rslot)  # [B,N,D,H]
+        valid = mask[..., None]
         e = torch.nn.functional.leaky_relu(el_src + er[:, :, None, :], slope)
-        e = torch.where(mask > 0, e, torch.full((), _NEG_LARGE, dtype=e.dtype))
+        e = torch.where(valid > 0, e, _NEG_LARGE)
         e = e - e.amax(dim=2, keepdim=True).detach()
-        w = torch.exp(e) * mask.to(e.dtype)
+        w = torch.exp(e) * valid.to(e.dtype)
         alpha = w / w.sum(dim=2, keepdim=True).clamp_min(1e-20)
         alpha = _dropout(alpha, attn_drop, generator)
-        z_src = torch.gather(z.reshape(B, N, H * F), 1,
-                             idx.expand(B, N * D, H * F)).reshape(B, N, D, H, F)
-        out = torch.einsum("bndh,bndhf->bnhf", alpha, z_src)
+        out = weighted_sum.weighted_combine(z, alpha, nbr, mask, graph.rslot)
         if res is not None:
             out = out + res.reshape(B, N, H, F)
         out = out + bias.reshape(H, F)

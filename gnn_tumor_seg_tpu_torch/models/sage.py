@@ -12,7 +12,8 @@ both and checkpoints cross without a transpose. The dense products stay
 neighbours is a Hopper kernel on the card (ops/aggregate.py): max for pool,
 sum and mean for gcn and mean, each with its backward kernel for training.
 On a weighted graph (GraphBatch.edge_weight) mean becomes a weighted average
-and gcn's sum and degree become weighted, as in the JAX package.
+and gcn's sum and degree become weighted, as in the JAX package; both then
+run the weighted-combine kernel, whose gradient reads the graph's `rslot`.
 
 Under precision mode "fast" the layers run in bf16: activations and the
 per-use parameter casts are bf16, the master parameters stay float32, and
@@ -81,11 +82,11 @@ class SageConv(nn.Module):
         ew = graph.edge_weight
         if self.aggregator == "mean":
             h_n = aggregate_neighbors(h, graph.nbr, graph.nbr_mask, "mean",
-                                      edge_weight=ew)
+                                      rslot=graph.rslot, edge_weight=ew)
             out = h @ p["w_self"] + h_n @ p["w_neigh"]
         elif self.aggregator == "gcn":
             s = aggregate_neighbors(h, graph.nbr, graph.nbr_mask, "sum",
-                                    edge_weight=ew)
+                                    rslot=graph.rslot, edge_weight=ew)
             w_mask = graph.nbr_mask if ew is None else graph.nbr_mask * ew
             deg = w_mask.sum(dim=-1, keepdim=True)
             h_n = (s + h) / (deg + 1.0).to(s.dtype)

@@ -214,7 +214,7 @@ def _check_common(x, nbr, nbr_mask, name: str) -> None:
 
 def _check_tensors(device, tensors) -> None:
     if device.type != "cuda":
-        raise ValueError("the fused GAT kernels run on a CUDA device")
+        raise ValueError("the kernels run on a CUDA device")
     for t, name in tensors:
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")

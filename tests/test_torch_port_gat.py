@@ -227,9 +227,10 @@ def test_gat_fast_mode_close_to_jax(graphs):
 
 
 def test_attention_dropout_path_on_the_cpu(graphs):
-    """attn_drop > 0 in training takes the JAX dense decomposed path (CPU
-    only; on CUDA it raises): without dropout it equals the fused path, and
-    with it the output changes."""
+    """attn_drop > 0 in training takes the decomposed path (the slot gather
+    and the weighted combine, here their plain versions; kernels 9 and 7 on
+    the card): without dropout it equals the fused path, and with it the
+    output changes."""
     _, tg = graphs
     layer = GatConv(20, 8, 3, residual=True, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():

@@ -62,6 +62,11 @@ def test_port_imports_no_jax_and_no_jax_package():
     expected = {
         "gnn_tumor_seg_tpu_torch.cli.predict_single",
         "gnn_tumor_seg_tpu_torch.cli.train_gnn",
+        "gnn_tumor_seg_tpu_torch.cli.preprocess",
+        "gnn_tumor_seg_tpu_torch.data.preprocess",
+        "gnn_tumor_seg_tpu_torch.ops.sddmm",
+        "gnn_tumor_seg_tpu_torch.ops.kernels.slot_gather",
+        "gnn_tumor_seg_tpu_torch.ops.kernels.weighted_sum",
         "gnn_tumor_seg_tpu_torch.ops.kernels.max_agg",
         "gnn_tumor_seg_tpu_torch.ops.kernels.sum_agg",
         "gnn_tumor_seg_tpu_torch.ops.kernels.fused_gat",

@@ -134,11 +134,12 @@ def test_max_gradient_needs_rslot():
 
 
 @pytest.mark.parametrize("op", ["sum", "mean"])
-def test_weighted_sum_mean_match_jax_on_cpu_and_refused_on_cuda(op):
-    """Edge-weighted sum/mean: the JAX dense weighted path on the CPU
-    (rtol/atol 1e-6, forward and both gradients); their kernel is not
-    ported, so off the CPU they raise and name it."""
-    nbr, mask, _ = _tables(11, 12)
+def test_weighted_sum_mean_match_jax_on_cpu(op):
+    """Edge-weighted sum/mean through the weighted-combine Function, whose
+    plain versions run on the CPU, against the JAX dense weighted path
+    (rtol/atol 1e-6, forward and the gradient of h; 1e-5 for the weights'
+    gradient, a dot over F in another order)."""
+    nbr, mask, rslot = _tables(11, 12)
     rng = np.random.default_rng(12)
     h = rng.normal(size=(B, N, F)).astype(np.float32)
     # symmetric weights (w_uv == w_vu), as the JAX VJP assumes and the
@@ -154,7 +155,7 @@ def test_weighted_sum_mean_match_jax_on_cpu_and_refused_on_cuda(op):
     x = torch.from_numpy(h).requires_grad_(True)
     wt = torch.from_numpy(w).requires_grad_(True)
     got = aggregate_neighbors(x, torch.from_numpy(nbr), torch.from_numpy(mask),
-                              op, edge_weight=wt)
+                              op, rslot=torch.from_numpy(rslot), edge_weight=wt)
     got.backward(torch.from_numpy(gout))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(out),
                                rtol=1e-6, atol=1e-6)
@@ -162,8 +163,3 @@ def test_weighted_sum_mean_match_jax_on_cpu_and_refused_on_cuda(op):
                                rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(wt.grad.numpy(), np.asarray(want_w),
                                rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="_wsum_kernel"):
-        aggregate_neighbors(torch.empty(B, N, F, device="meta"),
-                            torch.empty(B, N, 12, dtype=torch.int32, device="meta"),
-                            torch.empty(B, N, 12, device="meta"), op,
-                            edge_weight=torch.empty(B, N, 12, device="meta"))
