@@ -17,11 +17,12 @@ Phases; the first failure ends the run with a non-zero exit and no result:
 3. kernel check: max_agg against its plain PyTorch version on the card at
    random tables of the node bucket 8192 (B=1, D=12/16, F=20/256, f32 and
    bf16, with and without the winner-slot store) and at edge cases; then,
-   at the training shapes (B=6, N=8192, D=12/16, F=20/256, f32 and bf16) on
-   random symmetric tables with ties and rows without a neighbour, max_agg
-   with its store, max_agg_bwd and sum_agg (sum and mean). Every result must
-   be bitwise equal to the plain version's, and two runs of each backward
-   kernel bitwise equal to each other. Then the three GAT kernels at the
+   at the training shapes (B=6, N=8192, D=12/16, F=3/20/36/256, f32 and
+   bf16) on random symmetric tables with ties and rows without a neighbour,
+   max_agg with its store, max_agg_bwd and sum_agg (sum and mean), and the
+   first two at D=128 (F=6, 256) and F=515. Every result must be bitwise
+   equal to the plain version's, and two runs of each backward kernel
+   bitwise equal to each other. Then the three GAT kernels at the
    training shapes ((H,F) = (4,256), (3,256), (1,4); tied logits, isolated
    rows, residual and ELU on and off; f32 and bf16): the forward within
    GAT_FWD_TOL of its plain version (bf16 output: one ulp beyond it), its
@@ -30,8 +31,8 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    decomposed kernels at the training shapes, with weights that are not
    symmetric and nonzero on padded slots: wsum and wsum_bwd at (H,F) =
    (1,20), (1,256), (4,256), (3,256), (1,4) bitwise, pairdot within
-   PAIRDOT_TOL, slot_gather and slot_gather_bwd at W = 1, 3, 4, 12, 48
-   bitwise, every backward deterministic, and an edge case at D=128; and a
+   PAIRDOT_TOL, slot_gather and slot_gather_bwd at W = 1, 2, 3, 4, 5, 12,
+   48 bitwise, every backward deterministic, and an edge case at D=128; and a
    small GAT with attention dropout must train on the card;
 4. serve: one 240x240x155 synthetic brain written as NIfTI, GSpool [256]*6 and
    CNN 8->16->4 checkpoints from seeded weights in the JAX package's format,
@@ -86,7 +87,8 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    weighted sum, a partial yardstick; for wsum, wsum_bwd and pairdot the
    weighted embedding_bag's forward, its weight backward and its
    per-sample-weight backward; for slot_gather and slot_gather_bwd
-   F.embedding and its backward) and byte bound.
+   F.embedding and its backward) and byte bound; slot_gather at every width
+   of phase 3.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; before it, one JSON line lists the kernels. The last line is
@@ -133,6 +135,10 @@ TRAIN_BATCH = 6
 TRAIN_NODES = 7000
 TRAIN_K = 10
 TRAIN_WIDTHS = [256] * 6
+# widths of the training kernel check: the model's 20 and 256 and, for
+# max_agg_bwd's vectors, a scalar width and one of vectors of 4 that is no
+# multiple of 8
+TRAIN_KERNEL_WIDTHS = (3, 20, 36, 256)
 
 
 class SmokeFailure(RuntimeError):
@@ -352,11 +358,15 @@ def symmetric_tables(rng, B, N, D, n_real=None, isolated_frac=0.05):
 def phase_train_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
                              B=TRAIN_BATCH) -> dict:
     """The training kernels against their plain versions on the card at the
-    training shapes (B=6, N=8192 of which 7000 real, D=12/16, F=20/256, f32
-    and bf16), on random symmetric tables with ties: max_agg with its
-    winner-slot store, max_agg_bwd, and sum_agg (sum and mean), bitwise; two
-    backward runs bitwise equal to each other (determinism). Returns the
-    largest difference seen per kernel (0 when bitwise)."""
+    training shapes (B=6, N=8192 of which 7000 real, D=12/16, f32 and bf16)
+    at F = 3, 20, 36, 256 (max_agg_bwd's vector widths 1, 4, 4, 8), on
+    random symmetric tables with ties and rows without a neighbour: max_agg
+    with its winner-slot store, max_agg_bwd, and sum_agg (sum and mean),
+    bitwise; two backward runs bitwise equal to each other (determinism).
+    Then max_agg and max_agg_bwd alone at the largest degree bucket (D=128;
+    F=6, vectors of 2) and at F=515, where the backward's 515 vectors of 1
+    take three blocks a row. Returns the largest difference seen per kernel
+    (0 when bitwise)."""
     from gnn_tumor_seg_tpu_torch.ops.kernels.max_agg import (
         max_aggregate, max_aggregate_backward, max_aggregate_backward_plain,
         max_aggregate_plain)
@@ -372,11 +382,11 @@ def phase_train_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
         check(torch.equal(_bits(got), _bits(want)),
               f"{kernel} differs from its plain version ({tag}): max abs {err}")
 
-    for D in (12, 16):
+    def run_case(B, N, D, n_real, widths, sums=True):
         nbr_np, mask_np, rslot_np = symmetric_tables(rng, B, N, D, n_real=n_real)
         nbr, mask, rslot = (torch.from_numpy(a).to(dev)
                             for a in (nbr_np, mask_np, rslot_np))
-        for F in (20, 256):
+        for F in widths:
             shape = (B, N, F)
             # quarter steps: many exact ties among neighbours, exact in bf16
             ties = torch.from_numpy(rng.integers(-8, 8, shape) / 4.0).float().to(dev)
@@ -394,7 +404,7 @@ def phase_train_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
                      "max_agg_bwd", tag)
                 check(torch.equal(_bits(grad), _bits(again)),
                       f"max_agg_bwd is not deterministic ({tag})")
-                for mean in (False, True):
+                for mean in ((False, True) if sums else ()):
                     x = gout if mean else h
                     got = sum_aggregate(x, nbr, mask, mean)
                     again = sum_aggregate(x, nbr, mask, mean)
@@ -405,7 +415,15 @@ def phase_train_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
                 if dev.type == "cuda":
                     torch.cuda.synchronize()
                 log(f"[kernel] bitwise equal to plain, deterministic: {tag}: "
-                    f"max_agg (arg stored), max_agg_bwd, sum_agg sum and mean")
+                    f"max_agg (arg stored), max_agg_bwd"
+                    + (", sum_agg sum and mean" if sums else ""))
+
+    for D in (12, 16):
+        run_case(B, N, D, n_real, TRAIN_KERNEL_WIDTHS)
+    # the largest degree bucket, N not a multiple of any block's rows
+    run_case(2, 777, 128, 700, (6, 256), sums=False)
+    # more than 256 vectors a row (F odd: vectors of 1)
+    run_case(1, 300, 12, 300, (515,), sums=False)
     return worst
 
 
@@ -566,7 +584,7 @@ def phase_gat_kernel_check(dev, N=8192, n_real=TRAIN_NODES, B=TRAIN_BATCH) -> di
 # kernel's dot over F runs in lanes and a shuffle tree, torch in its own order
 PAIRDOT_TOL = 1e-6
 DECOMPOSED_SHAPES = [(1, 20), (1, 256), (4, 256), (3, 256), (1, 4)]
-SLOT_WIDTHS = [1, 3, 4, 12, 48]
+SLOT_WIDTHS = [1, 2, 3, 4, 5, 12, 48]
 
 
 def phase_decomposed_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
@@ -1826,17 +1844,17 @@ def bag_library_inputs(x, nbr, mask):
 def phase_decomposed_timing(dataset, card) -> dict:
     """The decomposed kernels at the training batch's own table (B=6,
     N=8192, D=12), f32 and bf16: wsum, wsum_bwd and pairdot at
-    DECOMPOSED_SHAPES, slot_gather and slot_gather_bwd at the GAT's head
-    counts; device ms per launch (CUDA-graph replay), plain ms and the byte
-    bound, and for f32 the library yardstick: the weighted embedding_bag
-    (aten._embedding_bag, mode sum, per-sample weights) for wsum, its weight
-    backward (aten._embedding_bag_dense_backward, over the same weights
-    read through the bags) for wsum_bwd, its per-sample-weight backward
-    (aten._embedding_bag_per_sample_weights_backward) for pairdot,
-    F.embedding for slot_gather and its backward
-    (aten.embedding_dense_backward) for slot_gather_bwd: each one call that
-    computes the same function. These launches come after the main path's
-    counts were read and are not part of them."""
+    DECOMPOSED_SHAPES, slot_gather at the GAT's head counts and SLOT_WIDTHS,
+    slot_gather_bwd at the head counts; device ms per launch (CUDA-graph
+    replay), plain ms and the byte bound, and the library yardstick: the
+    weighted embedding_bag (aten._embedding_bag, mode sum, per-sample
+    weights) for wsum, its weight backward (aten._embedding_bag_dense_backward,
+    over the same weights read through the bags) for wsum_bwd, its
+    per-sample-weight backward (aten._embedding_bag_per_sample_weights_backward)
+    for pairdot, F.embedding for slot_gather (in both types) and its backward
+    (aten.embedding_dense_backward) for slot_gather_bwd; the others in f32
+    only. Each is one call that computes the same function. These launches
+    come after the main path's counts were read and are not part of them."""
     import torch.nn.functional as F_
 
     from gnn_tumor_seg_tpu_torch.ops.graph import batch_graphs
@@ -1923,33 +1941,35 @@ def phase_decomposed_timing(dataset, card) -> dict:
                   live_rows * HF * es + referenced * HF * es + 2 * table
                   + B * N * D * H * 4, f"pairdot {tag}")
             del values, gout, w, libs
-        for W in sorted({h for h, _, _, _ in gat_layers()}):
+        heads = {h for h, _, _, _ in gat_layers()}
+        for W in sorted(heads | set(SLOT_WIDTHS)):
             x = torch.randn((B, N, W), generator=gen, device=dev).to(dtype)
             g = torch.randn((B, N, D, W), generator=gen, device=dev).to(dtype)
-            lib_f = lib_b = None
+            ridx = torch.where(mask > 0, nbr + offs, B * N).reshape(-1)
+            wt = torch.cat([x.reshape(B * N, W), x.new_zeros(1, W)])
+            lib_f = lambda: F_.embedding(ridx, wt, padding_idx=B * N)
+            lib_b = None
             if f32:
-                ridx = torch.where(mask > 0, nbr + offs, B * N).reshape(-1)
-                wt = torch.cat([x.reshape(B * N, W), x.new_zeros(1, W)])
                 g_rows = g.reshape(B * N * D, W)
-                lib_f = lambda: F_.embedding(ridx, wt, padding_idx=B * N)
                 lib_b = lambda: aten.embedding_dense_backward.default(
                     g_rows, ridx, B * N + 1, B * N, False)
-                lib_err[("slot_gather", W)] = within(
-                    lib_f().reshape(B, N, D, W), slot_gather(x, nbr, mask))
                 lib_err[("slot_gather_bwd", W)] = within(
                     lib_b()[:B * N].reshape(B, N, W),
                     slot_gather_backward(g, nbr, mask, rslot))
+            lib_err[("slot_gather", name, W)] = within(
+                lib_f().reshape(B, N, D, W), slot_gather(x, nbr, mask))
             tag = f"B={B} N={N} D={D} W={W} {name}"
             timed(("slot_gather", name, W),
                   lambda: slot_gather(x, nbr, mask),
                   lambda: slot_gather_plain(x, nbr, mask), lib_f,
                   referenced * W * es + 2 * table + B * N * D * W * es,
                   f"slot_gather {tag}")
-            timed(("slot_gather_bwd", name, W),
-                  lambda: slot_gather_backward(g, nbr, mask, rslot),
-                  lambda: slot_gather_backward_plain(g, nbr, mask, rslot), lib_b,
-                  real * W * es + 3 * table + B * N * W * es,
-                  f"slot_gather_bwd {tag}")
+            if W in heads:
+                timed(("slot_gather_bwd", name, W),
+                      lambda: slot_gather_backward(g, nbr, mask, rslot),
+                      lambda: slot_gather_backward_plain(g, nbr, mask, rslot), lib_b,
+                      real * W * es + 3 * table + B * N * W * es,
+                      f"slot_gather_bwd {tag}")
             del x, g
     log(f"[dec-timing] library yardsticks against the kernels, largest "
         f"difference relative to the largest value: "

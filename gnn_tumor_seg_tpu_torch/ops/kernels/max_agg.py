@@ -6,8 +6,9 @@ Replaces gnn_tumor_seg_tpu/ops/pallas/gather_agg.py:135 `_max_kernel`
 gather_agg.py:200 `_max_bwd_kernel` (launched by `tiled_max_backward`,
 gather_agg.py:238). Both kernels are CUDA C++ (csrc/max_agg.cu), built for
 sm_90a with nvcc into a shared library with a plain C interface at first use
-and loaded with ctypes; its header says what bounds them (bytes) and what the
-design does about that.
+and loaded with ctypes; its header says what bounds them (bytes, and for the
+backward the loads a thread keeps in flight) and what each design does
+about that.
 
 `max_aggregate` and `max_aggregate_backward` launch their kernel on a CUDA
 tensor and take the plain version only for a CPU tensor; on a CUDA tensor
@@ -180,9 +181,12 @@ def max_aggregate_backward(gout: torch.Tensor, arg: torch.Tensor,
             or rslot.device != gout.device or not rslot.is_contiguous():
         raise ValueError("rslot must be a contiguous int32 tensor shaped and "
                          "placed like nbr")
+    B, N, F = gout.shape
+    if N * F >= 2 ** 31:
+        raise ValueError(f"max_agg_bwd indexes a graph's rows with 32-bit "
+                         f"integers; N*F = {N * F} >= 2**31")
     if _LIB is None:
         build()
-    B, N, F = gout.shape
     D = nbr.shape[2]
     grad = torch.empty_like(gout)
     fn = (_LIB.gts_max_agg_bwd_f32 if gout.dtype == torch.float32

@@ -101,6 +101,9 @@ def slot_gather(x: torch.Tensor, nbr: torch.Tensor,
         build()
     B, N, W = x.shape
     D = nbr.shape[2]
+    if B * N * D * W >= 2 ** 31:
+        raise ValueError(f"slot_gather indexes its output with 32-bit "
+                         f"integers; B*N*D*W = {B * N * D * W} >= 2**31")
     out = torch.empty((B, N, D, W), dtype=x.dtype, device=x.device)
     fn = (_LIB.gts_slot_gather_f32 if x.dtype == torch.float32
           else _LIB.gts_slot_gather_bf16)

@@ -87,7 +87,7 @@ def _normal(seed, *shape):
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
 
 
-@pytest.mark.parametrize("W", [1, 3, 8])
+@pytest.mark.parametrize("W", [1, 2, 3, 4, 5, 8])
 def test_slot_gather_matches_jax(graphs, W):
     jg, tg = graphs
     B, N, D = tg.nbr.shape

@@ -76,9 +76,7 @@ def _port_vjp(h, gout, nbr, mask, rslot, op):
     return out.detach().numpy(), x.grad.numpy()
 
 
-@pytest.mark.parametrize("D", [12, 16])
-@pytest.mark.parametrize("op", ["max", "sum", "mean"])
-def test_forward_and_vjp_match_jax_dense_and_pallas(op, D):
+def _check_against_jax(op, D, F):
     nbr, mask, rslot = _tables(D, D)
     rng = np.random.default_rng(100 + D)
     h = rng.normal(size=(B, N, F)).astype(np.float32)
@@ -102,6 +100,21 @@ def test_forward_and_vjp_match_jax_dense_and_pallas(op, D):
                                nbr[..., None].repeat(F, 3), axis=1)
         g = np.where(mask[..., None] > 0, g, -np.inf)
         assert ((g == g.max(2, keepdims=True)).sum(2) > 1).any()
+
+
+@pytest.mark.parametrize("D", [12, 16])
+@pytest.mark.parametrize("op", ["max", "sum", "mean"])
+def test_forward_and_vjp_match_jax_dense_and_pallas(op, D):
+    _check_against_jax(op, D, F)
+
+
+@pytest.mark.parametrize("D", [12, 16])
+@pytest.mark.parametrize("width", [3, 20, 36])
+def test_max_vjp_matches_jax_at_kernel_vector_widths(width, D):
+    """The max forward and backward at the widths that give the backward
+    kernel vectors of 1 (F=3) and 4 (F=20, the first GSpool layer; F=36,
+    no multiple of 8), against the same JAX references and tolerances."""
+    _check_against_jax("max", D, width)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
