@@ -13,7 +13,9 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    reverse combine), weighted_sum.cu (the weighted combine, its reverse and
    the pair dot) and slot_gather.cu (the per-slot gather and its backward)
    (nvcc, sm_90a) and the native host library (g++), all from the sources in
-   this checkout, one compiler process each, in parallel;
+   this checkout, one compiler process each, in parallel; ptxas' registers
+   and spills of wsum_kernel and gat_rev_kernel are logged, and a spill
+   fails the run;
 3. kernel check: max_agg against its plain PyTorch version on the card at
    random tables of the node bucket 8192 (B=1, D=12/16, F=20/256, f32 and
    bf16, with and without the winner-slot store) and at edge cases; then,
@@ -23,17 +25,20 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    first two at D=128 (F=6, 256) and F=515. Every result must be bitwise
    equal to the plain version's, and two runs of each backward kernel
    bitwise equal to each other. Then the three GAT kernels at the
-   training shapes ((H,F) = (4,256), (3,256), (1,4); tied logits, isolated
-   rows, residual and ELU on and off; f32 and bf16): the forward within
+   training shapes ((H,F) = (4,256), (3,256), (1,4), and (2,36), (3,6),
+   (1,515) for every vector width of the reverse combine; tied logits,
+   isolated rows, residual and ELU on and off; f32 and bf16) and at D=128,
+   H=6, F=2: the forward within
    GAT_FWD_TOL of its plain version (bf16 output: one ulp beyond it), its
    sign mask and serve variant bitwise, the backward within GAT_BWD_TOL,
    the reverse combine bitwise, each backward kernel deterministic. Then the
    decomposed kernels at the training shapes, with weights that are not
    symmetric and nonzero on padded slots: wsum and wsum_bwd at (H,F) =
-   (1,20), (1,256), (4,256), (3,256), (1,4) bitwise, pairdot within
+   (1,20), (1,256), (4,256), (3,256), (1,4) and, for every vector width,
+   (1,3), (2,6), (1,36), (1,515) bitwise, pairdot within
    PAIRDOT_TOL, slot_gather and slot_gather_bwd at W = 1, 2, 3, 4, 5, 12,
-   48 bitwise, every backward deterministic, and an edge case at D=128; and a
-   small GAT with attention dropout must train on the card;
+   48 bitwise, every backward deterministic, and an edge case at D=128 (f32
+   and bf16); and a small GAT with attention dropout must train on the card;
 4. serve: one 240x240x155 synthetic brain written as NIfTI, GSpool [256]*6 and
    CNN 8->16->4 checkpoints from seeded weights in the JAX package's format,
    three requests through cli.predict_single.predict_single_mri under "exact"
@@ -83,8 +88,11 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    of each (device busy and idle share, top kernels), and per kernel at the
    batch's own table (B=6, N=8192, D=12): device time (CUDA-graph replay),
    plain version, library yardstick (embedding_bag's sum and mean, the
-   backward alone of its max, and its max forward; for GAT's combine, its
-   weighted sum, a partial yardstick; for wsum, wsum_bwd and pairdot the
+   backward alone of its max, and its max forward; partial yardsticks for
+   the three GAT kernels: the weighted embedding_bag for the forward's
+   combine, its per-sample-weight backward for the backward's d_alpha and
+   its weight backward for the reverse combine's d_z; for wsum, wsum_bwd
+   and pairdot the
    weighted embedding_bag's forward, its weight backward and its
    per-sample-weight backward; for slot_gather and slot_gather_bwd
    F.embedding and its backward) and byte bound; slot_gather at every width
@@ -238,7 +246,41 @@ def phase_build() -> None:
             if name.endswith("(nvcc sm_90a)"):
                 for line in out.strip().splitlines():
                     log(f"[build]   {line}")
+            if name.startswith(("weighted_sum.cu", "fused_gat.cu")):
+                for kern, regs, stores, loads in ptxas_kernels(out):
+                    if "wsum_kernel" in kern or "gat_rev_kernel" in kern:
+                        log(f"[build] {kern}: {regs} registers, spill stores "
+                            f"{stores} B, spill loads {loads} B")
+                        check(stores == loads == 0, f"{kern} spills registers")
     check(native.available(), "native host library did not load")
+
+
+def ptxas_kernels(build_log: str) -> list[tuple[str, int, int, int]]:
+    """(kernel, registers a thread, spill store bytes, spill load bytes) of
+    each entry function in nvcc's -Xptxas=-v output, names demangled when
+    c++filt is there and cut at their argument list."""
+    import re
+    import shutil
+
+    found, name, spills = [], None, (0, 0)
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            found.append((name, int(m.group(1)), *spills))
+            name = None
+    if found and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(f[0] for f in found),
+                               capture_output=True, text=True, timeout=60).stdout
+        found = [(n.replace("(anonymous namespace)::", "").split("(")[0]
+                  .removeprefix("void "), *rest)
+                 for n, (_, *rest) in zip(names.splitlines(), found)]
+    return found
 
 
 # ---------------------------------------------------------------------------
@@ -479,13 +521,14 @@ def gat_inputs(rng, B, N, H, F, dtype, dev):
 def phase_gat_kernel_check(dev, N=8192, n_real=TRAIN_NODES, B=TRAIN_BATCH) -> dict:
     """The three fused GAT kernels against their plain versions on the card
     at the training shapes (B=6, N=8192 of which 7000 real, D=12/16, the
-    hardcoded GAT's (H,F), f32 and bf16), on random symmetric
-    tables with isolated rows, with tied logits, residual and ELU on and
-    off: the forward within GAT_FWD_TOL (bf16 output: 1 ulp beyond it), its
-    sign mask bitwise and the serve variant (no stores) bitwise equal to the
-    training one; the backward within GAT_BWD_TOL; the reverse combine
-    bitwise; two runs of each backward kernel bitwise equal. Returns the
-    largest difference per kernel, relative ("rel") and absolute ("abs")."""
+    hardcoded GAT's (H,F) and GAT_VECTOR_SHAPES, f32 and bf16), on random
+    symmetric tables with isolated rows, with tied logits, residual and ELU
+    on and off: the forward within GAT_FWD_TOL (bf16 output: 1 ulp beyond
+    it), its sign mask bitwise and the serve variant (no stores) bitwise
+    equal to the training one; the backward within GAT_BWD_TOL; the reverse
+    combine bitwise; two runs of each backward kernel bitwise equal. Then
+    the same at D=128, H=6, F=2 (f32 and bf16). Returns the largest
+    difference per kernel, relative ("rel") and absolute ("abs")."""
     from gnn_tumor_seg_tpu_torch.ops.kernels.fused_gat import (
         fused_gat_backward, fused_gat_backward_plain, fused_gat_forward,
         fused_gat_forward_plain, gat_reverse_combine, gat_reverse_combine_plain)
@@ -502,7 +545,7 @@ def phase_gat_kernel_check(dev, N=8192, n_real=TRAIN_NODES, B=TRAIN_BATCH) -> di
         nbr_np, mask_np, rslot_np = symmetric_tables(rng, B, N, D, n_real=n_real)
         nbr, mask, rslot = (torch.from_numpy(a).to(dev)
                             for a in (nbr_np, mask_np, rslot_np))
-        for H, F in head_shapes:
+        for H, F in head_shapes + GAT_VECTOR_SHAPES:
             for dtype in (torch.float32, torch.bfloat16):
                 x = gat_inputs(rng, B, N, H, F, dtype, dev)
                 bf16 = dtype == torch.bfloat16
@@ -559,22 +602,30 @@ def phase_gat_kernel_check(dev, N=8192, n_real=TRAIN_NODES, B=TRAIN_BATCH) -> di
     nbr_np, mask_np, rslot_np = symmetric_tables(rng, 2, 777, 128, n_real=700)
     nbr, mask, rslot = (torch.from_numpy(a).to(dev)
                         for a in (nbr_np, mask_np, rslot_np))
-    x = gat_inputs(rng, 2, 777, 6, 2, torch.float32, dev)
-    args = (x["z"], x["el"], x["er"], nbr, mask, 0.2, "elu", x["res"], x["bias"])
-    out, alpha, pos = fused_gat_forward(*args)
-    w_out, w_alpha, w_pos = fused_gat_forward_plain(*args)
-    d_pre, d_er = fused_gat_backward(x["gout"], x["z"], alpha, pos, nbr, mask)
-    w_pre, w_er = fused_gat_backward_plain(x["gout"], x["z"], alpha, pos, nbr, mask)
-    d_z, d_el = gat_reverse_combine(x["gout"], alpha, d_pre, nbr, mask, rslot)
-    w_z, w_el = gat_reverse_combine_plain(x["gout"], alpha, d_pre, nbr, mask, rslot)
-    tag = "B=2 N=777 D=128 H=6 F=2 float32"
-    check(max(within(out, w_out), within(alpha, w_alpha)) <= GAT_FWD_TOL
-          and torch.equal(pos, w_pos), f"gat_fwd differs from plain ({tag})")
-    check(max(within(d_pre, w_pre), within(d_er, w_er)) <= GAT_BWD_TOL,
-          f"gat_bwd differs from plain ({tag})")
-    check(torch.equal(d_z, w_z) and torch.equal(d_el, w_el),
-          f"gat_rev differs from plain ({tag})")
-    log(f"[kernel] {tag}: gat_fwd, gat_bwd within tolerance, gat_rev bitwise")
+    for dtype in (torch.float32, torch.bfloat16):
+        x = gat_inputs(rng, 2, 777, 6, 2, dtype, dev)
+        args = (x["z"], x["el"], x["er"], nbr, mask, 0.2, "elu", x["res"], x["bias"])
+        out, alpha, pos = fused_gat_forward(*args)
+        w_out, w_alpha, w_pos = fused_gat_forward_plain(*args)
+        d_pre, d_er = fused_gat_backward(x["gout"], x["z"], alpha, pos, nbr, mask)
+        w_pre, w_er = fused_gat_backward_plain(x["gout"], x["z"], alpha, pos, nbr,
+                                               mask)
+        d_z, d_el = gat_reverse_combine(x["gout"], alpha, d_pre, nbr, mask, rslot)
+        again = gat_reverse_combine(x["gout"], alpha, d_pre, nbr, mask, rslot)
+        w_z, w_el = gat_reverse_combine_plain(x["gout"], alpha, d_pre, nbr, mask,
+                                              rslot)
+        tag = f"B=2 N=777 D=128 H=6 F=2 {str(dtype)[6:]}"
+        check(max(within(out, w_out, dtype == torch.bfloat16),
+                  within(alpha, w_alpha)) <= GAT_FWD_TOL
+              and torch.equal(pos, w_pos), f"gat_fwd differs from plain ({tag})")
+        check(max(within(d_pre, w_pre), within(d_er, w_er)) <= GAT_BWD_TOL,
+              f"gat_bwd differs from plain ({tag})")
+        check(torch.equal(_bits(d_z), _bits(w_z)) and torch.equal(d_el, w_el),
+              f"gat_rev differs from plain ({tag})")
+        check(torch.equal(_bits(d_z), _bits(again[0])) and torch.equal(d_el, again[1]),
+              f"gat_rev is not deterministic ({tag})")
+        log(f"[kernel] {tag}: gat_fwd, gat_bwd within tolerance, gat_rev bitwise "
+            f"and deterministic")
     log(f"[kernel] GAT kernels against plain, largest difference relative to "
         f"the largest value: {worst}; absolute: {worst_abs}")
     return {"rel": worst, "abs": worst_abs}
@@ -584,6 +635,12 @@ def phase_gat_kernel_check(dev, N=8192, n_real=TRAIN_NODES, B=TRAIN_BATCH) -> di
 # kernel's dot over F runs in lanes and a shuffle tree, torch in its own order
 PAIRDOT_TOL = 1e-6
 DECOMPOSED_SHAPES = [(1, 20), (1, 256), (4, 256), (3, 256), (1, 4)]
+# (H,F) beyond the main path's that reach every vector width of the combines
+# (wsum, wsum_bwd, gat_rev): vectors of 1 (F=3), 2 (F=6) and 4 (F=36), and
+# at F=515 vectors of 1 over three runs of 256 threads (the third grid
+# dimension); bf16 reaches vectors of 8 at the main path's F=256
+VECTOR_SHAPES = [(1, 3), (2, 6), (1, 36), (1, 515)]
+GAT_VECTOR_SHAPES = [(2, 36), (3, 6), (1, 515)]
 SLOT_WIDTHS = [1, 2, 3, 4, 5, 12, 48]
 
 
@@ -594,10 +651,11 @@ def phase_decomposed_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
     versions on the card at the training shapes (B=6, N=8192 of which 7000
     real, D=12/16, f32 and bf16), on random symmetric tables with isolated
     rows and with weights that are not symmetric and nonzero on padded slots:
-    wsum and wsum_bwd at DECOMPOSED_SHAPES bitwise, pairdot within
-    PAIRDOT_TOL of the largest value, slot_gather and slot_gather_bwd at
-    SLOT_WIDTHS bitwise; two runs of every backward bitwise equal; then an
-    edge case at D=128. Returns the largest difference per kernel, relative
+    wsum and wsum_bwd at DECOMPOSED_SHAPES and VECTOR_SHAPES bitwise, pairdot
+    within PAIRDOT_TOL of the largest value, slot_gather and slot_gather_bwd
+    at SLOT_WIDTHS bitwise; two runs each of wsum, wsum_bwd, pairdot and
+    slot_gather_bwd bitwise equal; then an edge case at D=128 (f32 and
+    bf16). Returns the largest difference per kernel, relative
     ("rel") and absolute ("abs")."""
     from gnn_tumor_seg_tpu_torch.ops.kernels.slot_gather import (
         slot_gather, slot_gather_backward, slot_gather_backward_plain,
@@ -675,10 +733,11 @@ def phase_decomposed_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
 
     both = (torch.float32, torch.bfloat16)
     for D in (12, 16):
-        run_case(B, N, D, n_real, DECOMPOSED_SHAPES, SLOT_WIDTHS, both)
+        run_case(B, N, D, n_real, DECOMPOSED_SHAPES + VECTOR_SHAPES, SLOT_WIDTHS,
+                 both)
     # the largest degree bucket, 6 heads, F=2, N not a multiple of any
     # block's rows
-    run_case(2, 777, 128, 700, [(6, 2)], [5], (torch.float32,))
+    run_case(2, 777, 128, 700, [(6, 2)], [5], both)
     log(f"[kernel] decomposed kernels against plain, largest difference "
         f"relative to the largest value: {worst}; absolute: {worst_abs}")
     return {"rel": worst, "abs": worst_abs}
@@ -1727,16 +1786,20 @@ def phase_gat_timing(dataset, card) -> dict:
     N=8192, D=12) and the hardcoded GAT's layer shapes, f32 and bf16:
     device ms per launch (CUDA-graph replay) of the forward as training runs
     it (alpha and sign mask stored) and as serving runs it, the backward and
-    the reverse combine; each beside its plain version and its byte bound;
-    embedding_bag's weighted sum as the combine's partial yardstick. These
-    launches come after the main path's counts were read and are not part
-    of them."""
+    the reverse combine; each beside its plain version and its byte bound.
+    Partial yardsticks in f32, none of which the port calls: for the
+    forward, embedding_bag's weighted sum (the combine alone); for the
+    backward, embedding_bag's per-sample-weight backward over alpha's bags
+    (d_alpha alone, no softmax backward); for the reverse combine, its
+    weight backward over the same bags (d_z alone, no d_el). These launches
+    come after the main path's counts were read and are not part of them."""
     import torch.nn.functional as F_
 
     from gnn_tumor_seg_tpu_torch.ops.graph import batch_graphs
     from gnn_tumor_seg_tpu_torch.ops.kernels.fused_gat import (
         fused_gat_backward, fused_gat_backward_plain, fused_gat_forward,
         fused_gat_forward_plain, gat_reverse_combine, gat_reverse_combine_plain)
+    from gnn_tumor_seg_tpu_torch.ops.kernels.weighted_sum import pairdot
 
     dev = torch.device("cuda")
     batch = batch_graphs([dataset.get_graph(i) for i in range(len(dataset))]).to(dev)
@@ -1749,7 +1812,11 @@ def phase_gat_timing(dataset, card) -> dict:
     live_rows = int((mask > 0).any(dim=2).sum())
     layers = gat_layers()
     rng = np.random.default_rng(SEED + 3)
+    aten = torch.ops.aten
     rows = {}
+    lib_what = {"gat_fwd": "embedding_bag weighted sum",
+                "gat_bwd": "_embedding_bag_per_sample_weights_backward",
+                "gat_rev": "_embedding_bag_dense_backward"}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         es = torch.empty((), dtype=dtype).element_size()
@@ -1760,7 +1827,7 @@ def phase_gat_timing(dataset, card) -> dict:
             _, alpha, pos = fused_gat_forward(z, x["el"], x["er"], nbr, mask, 0.2,
                                               None, None, x["bias"], save=True)
             d_pre, _ = fused_gat_backward(gout, z, alpha, pos, nbr, mask)
-            lib_ms = None
+            lib_ms = {k: None for k in lib_what}
             if dtype == torch.float32:
                 idx, weight, w, pad = gat_library_inputs(z, alpha, nbr, mask)
                 library = lambda: F_.embedding_bag(idx, weight, mode="sum",
@@ -1771,11 +1838,32 @@ def phase_gat_timing(dataset, card) -> dict:
                                                   torch.zeros_like(x["bias"]),
                                                   save=False)
                 lib_err = within(library().reshape(B, N, H, F), combine)
-                lib_ms = time_device(library)
-                log(f"[gat-timing] embedding_bag weighted sum vs the fused "
-                    f"combine (no epilogue) at H={H} F={F} {name}: {lib_err:.3g} "
-                    f"of the largest value")
-                del idx, weight, w, combine
+                lib_ms["gat_fwd"] = time_device(library)
+                # the bags of alpha over the [B*N*H, F] view of z
+                flat, offsets, weight, pad = bag_library_inputs(z, nbr, mask)
+                psw = alpha.reshape(B, N, D, H).permute(0, 1, 3, 2).reshape(-1)
+                psw = psw.contiguous()
+                _, o2b, bsz, mxi = aten._embedding_bag.default(
+                    weight, flat, offsets, False, 0, False, psw, False, pad)
+                g_flat = gout.reshape(B * N * H, F)
+                d_alpha = lambda: (aten._embedding_bag_per_sample_weights_backward
+                                   .default(g_flat, weight, flat, offsets, o2b, 0, pad))
+                d_z = lambda: aten._embedding_bag_dense_backward.default(
+                    g_flat, flat, o2b, bsz, mxi, pad + 1, False, 0, psw, pad)
+                bwd_err = within(d_alpha().reshape(B, N, H, D).permute(0, 1, 3, 2),
+                                 pairdot(gout, z, nbr, mask))
+                rev_err = within(d_z()[:pad].reshape(B, N, H, F),
+                                 gat_reverse_combine(gout, alpha, d_pre, nbr, mask,
+                                                     rslot)[0])
+                lib_ms["gat_bwd"] = time_device(d_alpha)
+                lib_ms["gat_rev"] = time_device(d_z)
+                log(f"[gat-timing] partial yardsticks at H={H} F={F} {name}, "
+                    f"difference relative to the largest value: embedding_bag "
+                    f"weighted sum vs the fused combine (no epilogue) {lib_err:.3g}; "
+                    f"its per-sample-weight backward vs d_alpha (pairdot) "
+                    f"{bwd_err:.3g}; its weight backward vs gat_rev's d_z "
+                    f"{rev_err:.3g}")
+                del idx, weight, w, combine, flat, offsets, psw, o2b, bsz, mxi
             table = B * N * D * 4
             slot = B * N * DH
             # compulsory bytes: each input read once (z's referenced rows),
@@ -1807,16 +1895,17 @@ def phase_gat_timing(dataset, card) -> dict:
                                                   rslot),
                 ref_rows + slot * 8 + 3 * table + B * N * HF * es + B * N * H * 4)
             for (kname, act, with_res), (kern, plain, nbytes) in timings.items():
+                kind = kname.removesuffix("_serve")
                 row = {"ms": time_device(kern), "plain_ms": time_device(plain, reps=5,
                                                                         inner=3),
                        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
-                       "library_ms": lib_ms if kname.startswith("gat_fwd") else None}
+                       "library_ms": lib_ms[kind]}
                 rows[(kname, name, H, F, act, with_res)] = row
                 log(f"[gat-timing] {kname} {name} H={H} F={F} act={act} "
                     f"res={with_res}: device {row['ms']:.5f} ms, bound "
                     f"{row['bound_ms']:.5f} ms ({nbytes} B), plain "
                     f"{row['plain_ms']:.5f} ms, library (partial, "
-                    f"embedding_bag weighted sum) {row['library_ms']} ms; "
+                    f"{lib_what[kind]}) {row['library_ms']} ms; "
                     f"card: {card}")
             del x, z, gout, alpha, pos, d_pre
     return {"rows": rows, "layers": layers, "referenced_rows": referenced,
@@ -2151,7 +2240,9 @@ def main() -> int:
         "max_rel_err": gat_worst["rel"]["gat_bwd"],
         **gat_per_step(gtime, "gat_bwd"),
         "bound_by": "bytes",
-        "per": f"one GAT training step, f32: {gat_desc}, {gtable}; no library call",
+        "per": (f"one GAT training step, f32: {gat_desc}, {gtable}; library "
+                "(partial): d_alpha alone, "
+                "aten._embedding_bag_per_sample_weights_backward over alpha's bags"),
         "fast_bf16": gat_per_step(gtime, "gat_bwd", "bfloat16"),
     }, {
         "name": "gat_rev",
@@ -2162,7 +2253,9 @@ def main() -> int:
         "max_abs_err": gat_worst["abs"]["gat_rev"],
         **gat_per_step(gtime, "gat_rev"),
         "bound_by": "bytes",
-        "per": f"one GAT training step, f32: {gat_desc}, {gtable}; no library call",
+        "per": (f"one GAT training step, f32: {gat_desc}, {gtable}; library "
+                "(partial): d_z alone, aten._embedding_bag_dense_backward over "
+                "alpha's bags"),
         "fast_bf16": gat_per_step(gtime, "gat_rev", "bfloat16"),
     }]
     dtable = f"B={dtime['B']}, N={dtime['N']}, D={dtime['D']}"

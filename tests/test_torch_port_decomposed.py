@@ -134,7 +134,10 @@ def _port_weighted_vjp(tg, values, weights, ct, fn=None):
     return out.detach().numpy(), v.grad.numpy(), w.grad.numpy()
 
 
-@pytest.mark.parametrize("H,F", [(1, 20), (3, 16), (1, 4)])
+# the model's widths, then F = 3, 6, 36 at H = 1 and 2: the widths at which
+# the combine kernel reads vectors of 1, 2 and 4 features
+@pytest.mark.parametrize("H,F", [(1, 20), (3, 16), (1, 4), (1, 3), (2, 3), (1, 6),
+                                 (2, 6), (1, 36), (2, 36)])
 def test_weighted_sum_and_vjp_match_jax(graphs, H, F):
     """Weights drawn at random per slot, so w[v,d] != w[u,rslot] (not
     symmetric): the reverse weights the backward reads through rslot are

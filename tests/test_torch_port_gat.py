@@ -42,7 +42,7 @@ from gnn_tumor_seg_tpu_torch.convert import gat_params_from_jax, gat_params_to_j
 from gnn_tumor_seg_tpu_torch.models.factory import init_graph_net
 from gnn_tumor_seg_tpu_torch.models.gat import GatConv
 from gnn_tumor_seg_tpu_torch.ops.graph import batch_graphs, graph_from_arrays
-from gnn_tumor_seg_tpu_torch.ops.kernels import fused_gat
+from gnn_tumor_seg_tpu_torch.ops.kernels import fused_gat, weighted_sum
 from gnn_tumor_seg_tpu_torch.ops.precision import precision_scope
 from gnn_tumor_seg_tpu_torch.train.losses import weighted_cross_entropy
 
@@ -108,7 +108,10 @@ def _port_vjp(tg, x, act, with_res, ct):
 
 @pytest.mark.parametrize("with_res", [False, True], ids=["no_res", "res"])
 @pytest.mark.parametrize("act", [None, "elu"], ids=["none", "elu"])
-@pytest.mark.parametrize("H,F", [(1, 4), (3, 16)])
+# the output layer's and a hidden layer's shape, then F = 3, 6, 36 at H = 1
+# and 2: the widths at which the reverse combine reads vectors of 1, 2 and 4
+@pytest.mark.parametrize("H,F", [(1, 4), (3, 16), (1, 3), (2, 3), (1, 6), (2, 6),
+                                 (1, 36), (2, 36)])
 def test_fused_attention_and_vjp_match_jax_dense(graphs, H, F, act, with_res):
     jg, tg = graphs
     x = _inputs(tg, H, F, seed=10 * H + F)
@@ -141,6 +144,35 @@ def test_fused_attention_matches_jax_interpret_kernel(graphs, H, F):
     for name, g in grads.items():
         np.testing.assert_allclose(g, np.asarray(want_grads[name]), rtol=5e-3,
                                    atol=5e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,F", [(1, 4), (2, 6), (3, 16)])
+def test_reverse_combine_is_the_weighted_sum_reverse(graphs, H, F, dtype):
+    """gat_rev's d_z is wsum_bwd's combine with alpha as the weights: the two
+    plain versions agree bitwise, on an alpha that is not symmetric
+    (alpha[v,d] != alpha[u,rslot]), as the two kernels must."""
+    _, tg = graphs
+    B, N, D = tg.nbr.shape
+    rng = np.random.default_rng(10 * H + F)
+    gout = torch.from_numpy(rng.normal(size=(B, N, H, F)).astype(np.float32)).to(dtype)
+    alpha = torch.from_numpy(rng.random((B, N, D * H)).astype(np.float32))
+    d_pre = torch.from_numpy(rng.normal(size=(B, N, D * H)).astype(np.float32))
+    a = alpha.reshape(B, N, D, H)
+    rev = torch.gather(a.reshape(B, N * D, H), 1,
+                       (tg.nbr.long() * D + tg.rslot.long()).reshape(B, N * D, 1)
+                       .expand(B, N * D, H)).reshape(B, N, D, H)
+    real = tg.nbr_mask > 0
+    assert not torch.equal(rev[real], a[real])         # not symmetric
+    d_z, _ = fused_gat.gat_reverse_combine_plain(gout, alpha, d_pre, tg.nbr,
+                                                 tg.nbr_mask, tg.rslot)
+    want = weighted_sum.weighted_sum_reverse_plain(gout, a, tg.nbr, tg.nbr_mask,
+                                                   tg.rslot)
+    assert d_z.dtype == want.dtype == dtype
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(d_z.view(bits), want.view(bits))
+    assert fused_gat.gat_reverse_combine.launches == 0
+    assert weighted_sum.weighted_sum_reverse.launches == 0
 
 
 def test_saved_alpha_and_sign_mask(graphs):
