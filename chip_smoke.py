@@ -14,8 +14,8 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    the pair dot) and slot_gather.cu (the per-slot gather and its backward)
    (nvcc, sm_90a) and the native host library (g++), all from the sources in
    this checkout, one compiler process each, in parallel; ptxas' registers
-   and spills of wsum_kernel and gat_rev_kernel are logged, and a spill
-   fails the run;
+   and spills of wsum_kernel, gat_fwd_kernel, gat_bwd_kernel and
+   gat_rev_kernel are logged, and a spill fails the run;
 3. kernel check: max_agg against its plain PyTorch version on the card at
    random tables of the node bucket 8192 (B=1, D=12/16, F=20/256, f32 and
    bf16, with and without the winner-slot store) and at edge cases; then,
@@ -28,10 +28,12 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    training shapes ((H,F) = (4,256), (3,256), (1,4), and (2,36), (3,6),
    (1,515) for every vector width of the reverse combine; tied logits,
    isolated rows, residual and ELU on and off; f32 and bf16) and at D=128,
-   H=6, F=2: the forward within
-   GAT_FWD_TOL of its plain version (bf16 output: one ulp beyond it), its
-   sign mask and serve variant bitwise, the backward within GAT_BWD_TOL,
-   the reverse combine bitwise, each backward kernel deterministic. Then the
+   H=6, F=2, each table also with holes (real slots after padded ones) for
+   the forward and the backward, and z/gout one element off alignment at
+   (4,256): the forward within GAT_FWD_TOL of its plain version (bf16
+   output: one ulp beyond it), its sign mask, serve variant and a second
+   run bitwise, the backward within GAT_BWD_TOL, the reverse combine
+   bitwise, every kernel deterministic. Then the
    decomposed kernels at the training shapes, with weights that are not
    symmetric and nonzero on padded slots: wsum and wsum_bwd at (H,F) =
    (1,20), (1,256), (4,256), (3,256), (1,4) and, for every vector width,
@@ -248,7 +250,8 @@ def phase_build() -> None:
                     log(f"[build]   {line}")
             if name.startswith(("weighted_sum.cu", "fused_gat.cu")):
                 for kern, regs, stores, loads in ptxas_kernels(out):
-                    if "wsum_kernel" in kern or "gat_rev_kernel" in kern:
+                    if any(k in kern for k in ("wsum_kernel", "gat_fwd_kernel",
+                                               "gat_bwd_kernel", "gat_rev_kernel")):
                         log(f"[build] {kern}: {regs} registers, spill stores "
                             f"{stores} B, spill loads {loads} B")
                         check(stores == loads == 0, f"{kern} spills registers")
@@ -518,17 +521,44 @@ def gat_inputs(rng, B, N, H, F, dtype, dev):
             "gout": t(rng.normal(size=(B, N, H, F)))}
 
 
+def punch_holes(rng, nbr, mask, rslot, frac=0.15):
+    """A copy of `mask` with both ends of a fraction of the edges masked
+    off: rows then have real slots after padded ones (a prefix-packed
+    table never does), padded slots keep their neighbour ids, and the
+    table stays symmetric with `rslot` still valid."""
+    mask = mask.copy()
+    b, v, d = np.nonzero((mask > 0) & (rng.random(mask.shape) < frac))
+    mask[b, v, d] = 0
+    mask[b, nbr[b, v, d], rslot[b, v, d]] = 0
+    check(((mask[..., 1:] > 0) & (mask[..., :-1] == 0)).any(),
+          "the holed table has no real slot after a padded one")
+    return mask
+
+
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t that starts one element past an aligned
+    address, so the kernels can only take vectors of 1."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def phase_gat_kernel_check(dev, N=8192, n_real=TRAIN_NODES, B=TRAIN_BATCH) -> dict:
     """The three fused GAT kernels against their plain versions on the card
     at the training shapes (B=6, N=8192 of which 7000 real, D=12/16, the
     hardcoded GAT's (H,F) and GAT_VECTOR_SHAPES, f32 and bf16), on random
     symmetric tables with isolated rows, with tied logits, residual and ELU
     on and off: the forward within GAT_FWD_TOL (bf16 output: 1 ulp beyond
-    it), its sign mask bitwise and the serve variant (no stores) bitwise
-    equal to the training one; the backward within GAT_BWD_TOL; the reverse
-    combine bitwise; two runs of each backward kernel bitwise equal. Then
-    the same at D=128, H=6, F=2 (f32 and bf16). Returns the largest
-    difference per kernel, relative ("rel") and absolute ("abs")."""
+    it), its sign mask bitwise, the serve variant (no stores) bitwise equal
+    to the training one and two runs bitwise equal; the backward within
+    GAT_BWD_TOL and deterministic; the reverse combine bitwise and
+    deterministic. The forward and the backward also on the same tables
+    with holes (punch_holes: real slots after padded ones) and with z and
+    gout one element off alignment (vectors of 1) at (H,F) = (4,256). Then
+    all of it at D=128, H=6, F=2 (f32 and bf16), with and without holes.
+    Returns the largest difference per kernel, relative ("rel") and
+    absolute ("abs")."""
     from gnn_tumor_seg_tpu_torch.ops.kernels.fused_gat import (
         fused_gat_backward, fused_gat_backward_plain, fused_gat_forward,
         fused_gat_forward_plain, gat_reverse_combine, gat_reverse_combine_plain)
@@ -541,91 +571,88 @@ def phase_gat_kernel_check(dev, N=8192, n_real=TRAIN_NODES, B=TRAIN_BATCH) -> di
     def seen(kernel, *pairs):
         worst_abs[kernel] = max([worst_abs[kernel]] + [
             (a.float() - b.float()).abs().max().item() for a, b in pairs])
+
+    def same(a, b):
+        return torch.equal(_bits(a) if a.is_floating_point() else a,
+                           _bits(b) if b.is_floating_point() else b)
+
+    def run_case(table, nbr, mask, rslot, Bc, Nc, H, F, dtype, rev=True, offset=False):
+        x = gat_inputs(rng, Bc, Nc, H, F, dtype, dev)
+        z, gout = x["z"], x["gout"]
+        if offset:
+            z, gout = misaligned(z), misaligned(gout)
+        bf16 = dtype == torch.bfloat16
+        base = f"{table} B={Bc} N={Nc} D={nbr.shape[2]} H={H} F={F} {str(dtype)[6:]}"
+        for act, with_res in (("elu", True), (None, False)):
+            tag = f"{base} act={act} res={with_res}"
+            args = (z, x["el"], x["er"], nbr, mask, 0.2, act,
+                    x["res"] if with_res else None, x["bias"])
+            out, alpha, pos = fused_gat_forward(*args, save=True)
+            again = fused_gat_forward(*args, save=True)
+            serve, _, _ = fused_gat_forward(*args, save=False)
+            w_out, w_alpha, w_pos = fused_gat_forward_plain(*args)
+            err = max(within(out, w_out, bf16), within(alpha, w_alpha))
+            worst["gat_fwd"] = max(worst["gat_fwd"], err)
+            seen("gat_fwd", (out, w_out), (alpha, w_alpha))
+            check(err <= GAT_FWD_TOL, f"gat_fwd differs from its plain version "
+                  f"({tag}): {err:.3g} of the largest value")
+            check(torch.equal(pos, w_pos), f"gat_fwd sign mask differs ({tag})")
+            check(torch.equal(_bits(serve), _bits(out)),
+                  f"gat_fwd without stores differs from with them ({tag})")
+            check(all(same(a, b) for a, b in zip(again, (out, alpha, pos))),
+                  f"gat_fwd is not deterministic ({tag})")
+        d_pre, d_er = fused_gat_backward(gout, z, alpha, pos, nbr, mask)
+        again = fused_gat_backward(gout, z, alpha, pos, nbr, mask)
+        w_pre, w_er = fused_gat_backward_plain(gout, z, alpha, pos, nbr, mask)
+        err = max(within(d_pre, w_pre), within(d_er, w_er))
+        worst["gat_bwd"] = max(worst["gat_bwd"], err)
+        seen("gat_bwd", (d_pre, w_pre), (d_er, w_er))
+        check(err <= GAT_BWD_TOL, f"gat_bwd differs from its plain version "
+              f"({base}): {err:.3g} of the largest value")
+        check(torch.equal(d_pre, again[0]) and torch.equal(d_er, again[1]),
+              f"gat_bwd is not deterministic ({base})")
+        done = "gat_fwd, gat_bwd"
+        if rev:
+            d_z, d_el = gat_reverse_combine(gout, alpha, d_pre, nbr, mask, rslot)
+            again = gat_reverse_combine(gout, alpha, d_pre, nbr, mask, rslot)
+            w_z, w_el = gat_reverse_combine_plain(gout, alpha, d_pre, nbr, mask, rslot)
+            worst["gat_rev"] = max(worst["gat_rev"], within(d_z, w_z),
+                                   within(d_el, w_el))
+            seen("gat_rev", (d_z, w_z), (d_el, w_el))
+            check(torch.equal(_bits(d_z), _bits(w_z)) and torch.equal(d_el, w_el),
+                  f"gat_rev differs from its plain version ({base})")
+            check(torch.equal(_bits(d_z), _bits(again[0]))
+                  and torch.equal(d_el, again[1]),
+                  f"gat_rev is not deterministic ({base})")
+            done += ", gat_rev"
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        log(f"[kernel] {base}{' z/gout misaligned' if offset else ''}: {done}: "
+            f"gat_fwd within {GAT_FWD_TOL} (ELU+res and none), sign mask, serve "
+            f"variant and second run bitwise; gat_bwd within {GAT_BWD_TOL}"
+            + ("; gat_rev bitwise" if rev else "") + "; deterministic")
+
+    def tables(Bc, Nc, D, nr):
+        nbr_np, mask_np, rslot_np = symmetric_tables(rng, Bc, Nc, D, n_real=nr)
+        holed = punch_holes(rng, nbr_np, mask_np, rslot_np)
+        nbr, rslot = (torch.from_numpy(a).to(dev) for a in (nbr_np, rslot_np))
+        return nbr, rslot, torch.from_numpy(mask_np).to(dev), torch.from_numpy(holed).to(dev)
+
     for D in (12, 16):
-        nbr_np, mask_np, rslot_np = symmetric_tables(rng, B, N, D, n_real=n_real)
-        nbr, mask, rslot = (torch.from_numpy(a).to(dev)
-                            for a in (nbr_np, mask_np, rslot_np))
+        nbr, rslot, mask, holed = tables(B, N, D, n_real)
         for H, F in head_shapes + GAT_VECTOR_SHAPES:
             for dtype in (torch.float32, torch.bfloat16):
-                x = gat_inputs(rng, B, N, H, F, dtype, dev)
-                bf16 = dtype == torch.bfloat16
-                for act, with_res in (("elu", True), (None, False)):
-                    tag = (f"B={B} N={N} D={D} H={H} F={F} {str(dtype)[6:]} "
-                           f"act={act} res={with_res}")
-                    args = (x["z"], x["el"], x["er"], nbr, mask, 0.2, act,
-                            x["res"] if with_res else None, x["bias"])
-                    out, alpha, pos = fused_gat_forward(*args, save=True)
-                    serve, _, _ = fused_gat_forward(*args, save=False)
-                    w_out, w_alpha, w_pos = fused_gat_forward_plain(*args)
-                    err = max(within(out, w_out, bf16), within(alpha, w_alpha))
-                    worst["gat_fwd"] = max(worst["gat_fwd"], err)
-                    seen("gat_fwd", (out, w_out), (alpha, w_alpha))
-                    check(err <= GAT_FWD_TOL,
-                          f"gat_fwd differs from its plain version ({tag}): "
-                          f"{err:.3g} of the largest value")
-                    check(torch.equal(pos, w_pos), f"gat_fwd sign mask differs ({tag})")
-                    check(torch.equal(_bits(serve), _bits(out)),
-                          f"gat_fwd without stores differs from with them ({tag})")
-                gout = x["gout"]
-                d_pre, d_er = fused_gat_backward(gout, x["z"], alpha, pos, nbr, mask)
-                again = fused_gat_backward(gout, x["z"], alpha, pos, nbr, mask)
-                w_pre, w_er = fused_gat_backward_plain(gout, x["z"], alpha, pos,
-                                                       nbr, mask)
-                err = max(within(d_pre, w_pre), within(d_er, w_er))
-                worst["gat_bwd"] = max(worst["gat_bwd"], err)
-                seen("gat_bwd", (d_pre, w_pre), (d_er, w_er))
-                check(err <= GAT_BWD_TOL, f"gat_bwd differs from its plain version "
-                      f"({tag}): {err:.3g} of the largest value")
-                check(torch.equal(d_pre, again[0]) and torch.equal(d_er, again[1]),
-                      f"gat_bwd is not deterministic ({tag})")
-                d_z, d_el = gat_reverse_combine(gout, alpha, d_pre, nbr, mask, rslot)
-                again = gat_reverse_combine(gout, alpha, d_pre, nbr, mask, rslot)
-                w_z, w_el = gat_reverse_combine_plain(gout, alpha, d_pre, nbr, mask,
-                                                      rslot)
-                worst["gat_rev"] = max(worst["gat_rev"], within(d_z, w_z),
-                                       within(d_el, w_el))
-                seen("gat_rev", (d_z, w_z), (d_el, w_el))
-                check(torch.equal(_bits(d_z), _bits(w_z)) and torch.equal(d_el, w_el),
-                      f"gat_rev differs from its plain version ({tag})")
-                check(torch.equal(_bits(d_z), _bits(again[0]))
-                      and torch.equal(d_el, again[1]),
-                      f"gat_rev is not deterministic ({tag})")
-                if dev.type == "cuda":
-                    torch.cuda.synchronize()
-                log(f"[kernel] D={D} H={H} F={F} {str(dtype)[6:]}: gat_fwd within "
-                    f"{GAT_FWD_TOL} (ELU+res and none), sign mask and serve "
-                    f"variant bitwise; gat_bwd within {GAT_BWD_TOL}; gat_rev "
-                    f"bitwise; backward kernels deterministic")
-                del x, out, alpha, pos, serve, w_out, w_alpha, w_pos
+                run_case("packed", nbr, mask, rslot, B, N, H, F, dtype)
+                run_case("holes", nbr, holed, rslot, B, N, H, F, dtype, rev=False)
+        for dtype in (torch.float32, torch.bfloat16):
+            run_case("packed", nbr, mask, rslot, B, N, 4, 256, dtype, rev=False,
+                     offset=True)
     # edge case: the largest degree bucket, 6 heads (random configurations
     # draw 3-6), F=2, N not a multiple of any block's rows
-    nbr_np, mask_np, rslot_np = symmetric_tables(rng, 2, 777, 128, n_real=700)
-    nbr, mask, rslot = (torch.from_numpy(a).to(dev)
-                        for a in (nbr_np, mask_np, rslot_np))
+    nbr, rslot, mask, holed = tables(2, 777, 128, 700)
     for dtype in (torch.float32, torch.bfloat16):
-        x = gat_inputs(rng, 2, 777, 6, 2, dtype, dev)
-        args = (x["z"], x["el"], x["er"], nbr, mask, 0.2, "elu", x["res"], x["bias"])
-        out, alpha, pos = fused_gat_forward(*args)
-        w_out, w_alpha, w_pos = fused_gat_forward_plain(*args)
-        d_pre, d_er = fused_gat_backward(x["gout"], x["z"], alpha, pos, nbr, mask)
-        w_pre, w_er = fused_gat_backward_plain(x["gout"], x["z"], alpha, pos, nbr,
-                                               mask)
-        d_z, d_el = gat_reverse_combine(x["gout"], alpha, d_pre, nbr, mask, rslot)
-        again = gat_reverse_combine(x["gout"], alpha, d_pre, nbr, mask, rslot)
-        w_z, w_el = gat_reverse_combine_plain(x["gout"], alpha, d_pre, nbr, mask,
-                                              rslot)
-        tag = f"B=2 N=777 D=128 H=6 F=2 {str(dtype)[6:]}"
-        check(max(within(out, w_out, dtype == torch.bfloat16),
-                  within(alpha, w_alpha)) <= GAT_FWD_TOL
-              and torch.equal(pos, w_pos), f"gat_fwd differs from plain ({tag})")
-        check(max(within(d_pre, w_pre), within(d_er, w_er)) <= GAT_BWD_TOL,
-              f"gat_bwd differs from plain ({tag})")
-        check(torch.equal(_bits(d_z), _bits(w_z)) and torch.equal(d_el, w_el),
-              f"gat_rev differs from plain ({tag})")
-        check(torch.equal(_bits(d_z), _bits(again[0])) and torch.equal(d_el, again[1]),
-              f"gat_rev is not deterministic ({tag})")
-        log(f"[kernel] {tag}: gat_fwd, gat_bwd within tolerance, gat_rev bitwise "
-            f"and deterministic")
+        run_case("packed", nbr, mask, rslot, 2, 777, 6, 2, dtype)
+        run_case("holes", nbr, holed, rslot, 2, 777, 6, 2, dtype, rev=False)
     log(f"[kernel] GAT kernels against plain, largest difference relative to "
         f"the largest value: {worst}; absolute: {worst_abs}")
     return {"rel": worst, "abs": worst_abs}

@@ -37,12 +37,14 @@
 //      d_z[u,h,:] = sum_d alpha[v,rslot[u,d],h] gout[v,h,:]
 //      d_el[u,h]  = sum_d d_pre[v,rslot[u,d],h].
 //
-// Arithmetic is float32 in every type; sums run in slot order. Kernels 1 and
-// 3 use explicitly rounded adds and products (__fadd_rn, __fmul_rn, which
-// nvcc never contracts into an FMA), so the reverse combine is bitwise equal
-// to its plain PyTorch version (ops/kernels/fused_gat.py) and the forward
-// differs from it only where CUDA's expf and PyTorch's exp differ. The
-// backward's dot over F is a warp-shuffle tree, another order than the plain
+// Arithmetic is float32 in every type; sums over slots run in slot order.
+// Kernels 1 and 3 use explicitly rounded adds and products (__fadd_rn,
+// __fmul_rn, which nvcc never contracts into an FMA), so the reverse
+// combine is bitwise equal to its plain PyTorch version
+// (ops/kernels/fused_gat.py) and the forward differs from it only where
+// CUDA's expf and PyTorch's exp differ: given alpha, its combine is bitwise
+// the plain version's. The backward's dot over F runs in FMAs over each
+// lane's vectors and then a shuffle tree, another order than the plain
 // version's sum. No kernel uses atomics: every result is the same run to
 // run.
 //
@@ -54,51 +56,72 @@
 // z, gout, out and d_z of 201 MB each, beyond the 50 MB L2, so a neighbour
 // row re-read for each of its D slots comes from L2 only when the rows of
 // a neighbourhood lie close together (they do for supervoxel graphs, whose
-// node ids follow space).
+// node ids follow space). The byte bound counts each referenced row once;
+// every kernel here re-reads it once per real slot (about ten a row), from
+// L2 at best, so a good kernel's floor lies at some 2-3x the byte bound.
 //
 // Design. The TPU kernels' unique-row compaction and one-hot MXU
 // contractions (fused_gat.py:70-80, 115-126) work around slow row gathers
-// on the TPU; here every kernel reads nbr directly.
-//
-// Forward (first, simple version): a block takes a tile of destination
-// rows, stages the rows' slots (padded slots as -1) and their logits, then
-// alpha, in shared memory; one thread per (row, head) runs the softmax in
-// slot order, and then the threads run along HF, each accumulating its
-// feature over the slots in a register, with the epilogue fused. Backward
-// (first, simple version): a group of G lanes (a power of two from 4 to 32:
-// 32 at F >= 32, 4 at the output layer's F=4) takes one (row, head): the
-// lanes stride over F for each slot's dot and reduce with xor shuffles
-// inside the group, keep d_alpha in shared memory, and then split the
-// slots for the softmax backward. Left for later in both: vector loads,
-// more rows per block at wide HF, cp.async or TMA staging.
-//
-// Reverse combine (the design of weighted_sum.cu's combine, whose reverse
-// instantiation computes the same d_z with alpha as the weights):
+// on the TPU; here every kernel reads nbr directly. All three share one
+// layout and one staging step:
 //  * each thread owns an aligned vector of VEC contiguous features inside
 //    one head (VEC = 8, 4, 2 or 1, the widest that divides F with a load of
-//    at most 16 bytes), and threads map flat onto (row, vector): at (H,F) =
-//    (1,4) in float32 a thread is a row, at (4,256) a block of 256 threads
-//    is a row (two in bfloat16); a row of more than 256 vectors takes a
-//    third grid dimension. Graphs are the slower grid dimension, so a wave
-//    gathers gout from the rows of about one graph;
-//  * staging is one round trip: the block loads mask, nbr and rslot of all
-//    its rows' slots at once, then compacts each row's real slots in slot
-//    order in shared memory with warp ballots and keeps their number;
-//  * the feature loop runs over the real slots alone. For each slot it
-//    reads the reverse alpha[v, rslot, h] beside the slot's gout vector
-//    (both depend on the staged pair alone, so the dependent load costs no
-//    round trip of its own), with kChunk slots' loads in flight before
-//    their adds. After d_z's store, the thread that owns a head's first
-//    vector reads d_pre[v, rslot, h] over the same staged slots and sums
-//    d_el in slot order;
-//  * sums in slot order with one rounding per product and add: skipping a
-//    padded slot equals the plain version's add of +0.0, so d_z and d_el
-//    stay bitwise the plain version's.
-// What bounds it: the D-fold re-reads of gout rows from L2 (about ten real
-// slots a row), so its floor is some 2-3x the byte bound.
+//    at most 16 bytes, and to which the feature pointers are aligned);
+//  * the block owns whole rows, all heads; graphs are the slower grid
+//    dimension, so a wave gathers from the rows of about one graph, which
+//    stay in L2. The rows a block takes are bounded by its threads, by 48
+//    KB of shared memory (at D=128 and narrow rows) and, in the forward
+//    and the backward, by kMaxRows (at HF=4, where a thread is a row, so
+//    that the grid has enough blocks);
+//  * staging is one round trip (stage_slots): the block loads mask and nbr
+//    (and rslot, for the reverse combine) of all its rows' slots at once,
+//    then compacts each row's real slots in slot order in shared memory
+//    with warp ballots and keeps their number; loops over slots then run
+//    over the real slots alone;
+//  * kChunk slots' loads are in flight before their arithmetic; kChunk is
+//    tuned for registers, since blocks resident on an SM, not loads in
+//    flight a thread, decide (scripts/torch_port_kernel_variants.py).
+//
+// Forward: threads map flat onto (row, vector): at (H,F) = (4,256) a block
+// of 256 threads is a row in float32 (two in bfloat16), at (1,4) in float32
+// a thread is a row; a row of more than 256 vectors takes a third grid
+// dimension (each of its blocks recomputes the row's softmax; the first
+// stores it). After staging, one pass loads el[nbr] for every (row, real
+// slot, head) of the block with the loads in flight together and writes the
+// logit, and a flag (real, sign), at the slot's position in shared memory;
+// one thread per (row, head) runs the softmax over the slot positions as
+// the plain version does (max, exp, sum in slot order, alpha = e * (1 /
+// max(sum, 1e-20)), so a row without a real slot gets alpha 0 and no NaN).
+// Training then writes alpha and the sign mask of the block's rows as one
+// contiguous span each, 0 on padded slots. In the feature loop each real
+// slot's alpha comes from shared memory beside its z vector; bias, res and
+// ELU are applied to the vector, which is stored once.
+//
+// Backward: a group of G lanes (a power of two up to 32) owns one (row,
+// head) and keeps that head's gout in registers as vectors (at F=256: 32
+// lanes, two vectors of 4 each in float32, one of 8 in bfloat16; at F=4 one
+// lane); the groups of a row are adjacent, so a head's dot reduces inside
+// one warp. For each chunk of real slots the lanes load the z vectors, dot
+// them with gout, and reduce the chunk's dots together in one shuffle tree;
+// the group's first lane writes d_alpha at the slot's position in shared
+// memory (0 on padded slots) and then sums alpha d_alpha in slot order. The
+// softmax and LeakyReLU backward run over the block's rows as one
+// contiguous span (alpha, pos, mask read and d_pre written coalesced), and
+// one thread per (row, head) sums d_er in slot order.
+//
+// Reverse combine (the design of weighted_sum.cu's combine, whose reverse
+// instantiation computes the same d_z with alpha as the weights): threads
+// flat over (row, vector) as in the forward; the feature loop reads the
+// reverse alpha[v, rslot, h] beside the slot's gout vector (both depend on
+// the staged (v, rslot) pair alone, so the dependent load costs no round
+// trip of its own). After d_z's store, the thread that owns a head's first
+// vector reads d_pre[v, rslot, h] over the same staged slots and sums d_el
+// in slot order. Skipping a padded slot equals the plain version's add of
+// +0.0, so d_z and d_el stay bitwise the plain version's.
 
 #include <algorithm>
 #include <cstdint>
+#include <initializer_list>
 #include <type_traits>
 
 #include <cuda_bf16.h>
@@ -110,198 +133,25 @@ constexpr float kNegLarge = -1e30f;
 constexpr int kMaxDegree = 128;
 constexpr int kMaxHeads = 16;
 constexpr int kThreads = 256;
+// the backward gives a row H groups of up to 32 lanes: 512 at 16 heads
+constexpr int kBwdMaxThreads = 512;
 constexpr size_t kSmemBudget = 48 * 1024;
-// table entries (mask, nbr, rslot) a thread loads together while staging
+// table entries (mask, nbr, rslot; el) a thread loads together while staging
 constexpr int kStageUnroll = 4;
+// rows a forward or backward block takes at most: at the output layer's
+// HF=4 a thread is a row, and 256 rows a block would leave 192 blocks for
+// 132 SMs (scripts/torch_port_kernel_variants.py)
+constexpr int kMaxRows = 128;
+// blocks of 256 threads an SM that the forward's registers must allow: 8
+// (32 registers a thread), 6 (40) at bfloat16's vectors of 8, which spill
+// at 32 (scripts/torch_port_kernel_variants.py)
+template <typename T, int VEC>
+constexpr int kFwdMinBlocks = sizeof(T) == 2 && VEC == 8 ? 6 : 8;
 
 __device__ __forceinline__ float load_as_float(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_as_float(const __nv_bfloat16* p) {
   return __bfloat162float(__ldg(p));
 }
-__device__ __forceinline__ void store_from_float(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_from_float(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
-}
-
-// ---------------------------------------------------------------- forward
-
-template <typename T, bool kAct, bool kRes, bool kSave>
-__global__ void gat_fwd_kernel(const T* __restrict__ z, const T* __restrict__ el,
-                               const T* __restrict__ er,
-                               const int32_t* __restrict__ nbr,
-                               const float* __restrict__ mask,
-                               const T* __restrict__ bias,
-                               const T* __restrict__ res, T* __restrict__ out,
-                               float* __restrict__ alpha_out,
-                               uint8_t* __restrict__ pos_out, int N, int D,
-                               int H, int F, float slope) {
-  extern __shared__ float smem[];
-  const int R = blockDim.y;                                 // rows per block
-  int32_t* slots = reinterpret_cast<int32_t*>(smem);        // [R, D]
-  float* w = smem + R * D;                                  // [R, D, H]
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.x * R;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nt = blockDim.x * blockDim.y;
-  const int HF = H * F;
-  const int DH = D * H;
-
-  for (int i = tid; i < R * D; i += nt) {
-    const int r = row0 + i / D;
-    int32_t s = -1;
-    if (r < N) {
-      const int64_t off = ((int64_t)b * N + r) * D + i % D;
-      if (mask[off] > 0.f) s = nbr[off];
-    }
-    slots[i] = s;
-  }
-  __syncthreads();
-
-  // logits: el of each slot's source plus the row's er, LeakyReLU; padded
-  // slots get the -1e30 sentinel
-  for (int i = tid; i < R * DH; i += nt) {
-    const int rl = i / DH;
-    const int d = (i / H) % D;
-    const int h = i % H;
-    const int r = row0 + rl;
-    float logit = kNegLarge;
-    if (r < N) {
-      const int64_t node = (int64_t)b * N + r;
-      const int32_t s = slots[rl * D + d];
-      uint8_t positive = 0;
-      if (s >= 0) {
-        const float p = __fadd_rn(load_as_float(el + ((int64_t)b * N + s) * H + h),
-                                  load_as_float(er + node * H + h));
-        logit = p >= 0.f ? p : __fmul_rn(p, slope);
-        positive = logit >= 0.f;
-      }
-      if (kSave) pos_out[node * DH + d * H + h] = positive;
-    }
-    w[i] = logit;
-  }
-  __syncthreads();
-
-  // masked softmax over the slots, one thread per (row, head)
-  for (int i = tid; i < R * H; i += nt) {
-    const int rl = i / H;
-    const int h = i % H;
-    const int r = row0 + rl;
-    if (r >= N) continue;
-    const int64_t node = (int64_t)b * N + r;
-    const int32_t* rs = slots + rl * D;
-    float* wr = w + rl * DH + h;
-    float mx = kNegLarge;
-    for (int d = 0; d < D; ++d) mx = fmaxf(mx, wr[d * H]);
-    float sum = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float e = rs[d] >= 0 ? expf(__fsub_rn(wr[d * H], mx)) : 0.f;
-      wr[d * H] = e;
-      sum = __fadd_rn(sum, e);
-    }
-    const float inv = __fdiv_rn(1.f, fmaxf(sum, 1e-20f));
-    for (int d = 0; d < D; ++d) {
-      const float a = __fmul_rn(wr[d * H], inv);
-      wr[d * H] = a;
-      if (kSave) alpha_out[node * DH + d * H + h] = a;
-    }
-  }
-  __syncthreads();
-
-  // weighted combine along HF and the epilogue
-  const int rl = threadIdx.y;
-  const int r = row0 + rl;
-  if (r >= N) return;
-  const int64_t node = (int64_t)b * N + r;
-  const int32_t* rs = slots + rl * D;
-  const float* ar = w + rl * DH;
-  const T* zb = z + (int64_t)b * N * HF;
-  for (int f = threadIdx.x; f < HF; f += blockDim.x) {
-    const int h = f / F;
-    float acc = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const int32_t s = rs[d];
-      if (s < 0) continue;
-      acc = __fadd_rn(acc, __fmul_rn(ar[d * H + h],
-                                     load_as_float(zb + (int64_t)s * HF + f)));
-    }
-    float v = __fadd_rn(acc, load_as_float(bias + f));
-    if (kRes) v = __fadd_rn(v, load_as_float(res + node * HF + f));
-    if (kAct) v = v > 0.f ? v : __fsub_rn(expf(fminf(v, 0.f)), 1.f);
-    store_from_float(out + node * HF + f, v);
-  }
-}
-
-// --------------------------------------------------------------- backward
-
-template <typename T>
-__global__ void gat_bwd_kernel(const T* __restrict__ gout,
-                               const T* __restrict__ z,
-                               const float* __restrict__ alpha,
-                               const uint8_t* __restrict__ pos,
-                               const int32_t* __restrict__ nbr,
-                               const float* __restrict__ mask,
-                               float* __restrict__ d_pre,
-                               float* __restrict__ d_er, int N, int D, int H,
-                               int F, int G, float slope) {
-  extern __shared__ float smem[];  // [groups, D]: d_alpha, then d_pre
-  const int gl = threadIdx.x & (G - 1);           // lane within the group
-  const int group = threadIdx.x / G;
-  const int groups = blockDim.x / G;
-  const int b = blockIdx.y;
-  const int64_t pair = (int64_t)blockIdx.x * groups + group;  // (row, head)
-  const bool live = pair < (int64_t)N * H;
-  const int r = live ? (int)(pair / H) : 0;
-  const int h = live ? (int)(pair % H) : 0;
-  const int HF = H * F;
-  const int DH = D * H;
-  const int64_t node = (int64_t)b * N + r;
-  float* da = smem + group * D;
-  const T* go = gout + node * HF + h * F;
-  const T* zb = z + (int64_t)b * N * HF + h * F;
-
-  // every lane of the warp runs every shuffle: the loop bounds are uniform
-  for (int d = 0; d < D; ++d) {
-    const int64_t off = node * D + d;
-    const bool real = live && mask[off] > 0.f;
-    float part = 0.f;
-    if (real) {
-      const T* zs = zb + (int64_t)nbr[off] * HF;
-      for (int f = gl; f < F; f += G)
-        part = fmaf(load_as_float(go + f), load_as_float(zs + f), part);
-    }
-    for (int o = G / 2; o > 0; o >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, o);
-    if (gl == 0) da[d] = part;
-  }
-  __syncwarp();
-
-  // softmax and LeakyReLU backward; the lanes of a group split the slots.
-  // Lanes of a group past the last (row, head) skip the work but still
-  // reach every __syncwarp.
-  const float* al = alpha + node * DH + h;
-  const uint8_t* ps = pos + node * DH + h;
-  float s = 0.f;
-  if (live)
-    for (int d = 0; d < D; ++d) s = __fadd_rn(s, __fmul_rn(al[d * H], da[d]));
-  __syncwarp();                                  // all reads of da done
-  if (live) {
-    for (int d = gl; d < D; d += G) {
-      const float de = __fmul_rn(al[d * H], __fsub_rn(da[d], s));
-      float dp = ps[d * H] ? de : __fmul_rn(de, slope);
-      if (!(mask[node * D + d] > 0.f)) dp = 0.f;
-      d_pre[node * DH + d * H + h] = dp;
-      da[d] = dp;
-    }
-  }
-  __syncwarp();
-  if (live && gl == 0) {
-    float acc = 0.f;
-    for (int d = 0; d < D; ++d) acc = __fadd_rn(acc, da[d]);
-    d_er[node * H + h] = acc;
-  }
-}
-
-// -------------------------------------------------------- reverse combine
 
 // BYTES bytes moved with one aligned access (at most 16)
 template <int BYTES> struct Raw { uint4 w[1]; };
@@ -345,9 +195,11 @@ __device__ __forceinline__ uint16_t float_to_bits(float v, uint16_t) {
 }
 
 // Stages, for rows row0 .. row0 + rows - 1 of graph b, the real slots of
-// each row in slot order as (source row v, rslot) pairs in
-// slots[rl * Dp ...] and their number in count[rl]. Every thread of the
-// block calls it (it holds two barriers); blockDim.x is a multiple of 32.
+// each row in slot order as pairs (source row v, rslot) when kRslot, else
+// (source row v, slot position d), in slots[rl * Dp ...], and their number
+// in count[rl]. Every thread of the block calls it (it holds two
+// barriers); blockDim.x is a multiple of 32.
+template <bool kRslot>
 __device__ __forceinline__ void stage_slots(const int32_t* __restrict__ nbr,
                                             const float* __restrict__ mask,
                                             const int32_t* __restrict__ rslot,
@@ -368,7 +220,7 @@ __device__ __forceinline__ void stage_slots(const int32_t* __restrict__ nbr,
       const int64_t off = base + min(i0 + u * nt, last);
       m[u] = __ldg(mask + off);
       s[u] = __ldg(nbr + off);
-      k[u] = __ldg(rslot + off);
+      if (kRslot) k[u] = __ldg(rslot + off);
     }
 #pragma unroll
     for (int u = 0; u < kStageUnroll; ++u) {
@@ -377,7 +229,7 @@ __device__ __forceinline__ void stage_slots(const int32_t* __restrict__ nbr,
         const int rl = i / D;
         const int d = i - rl * D;
         const bool real = i <= last && m[u] > 0.f;
-        slots[rl * Dp + d] = real ? make_int2(s[u], k[u]) : make_int2(-1, 0);
+        slots[rl * Dp + d] = real ? make_int2(s[u], kRslot ? k[u] : d) : make_int2(-1, 0);
       }
     }
   }
@@ -410,6 +262,297 @@ __device__ __forceinline__ void stage_slots(const int32_t* __restrict__ nbr,
   __syncthreads();
 }
 
+// ---------------------------------------------------------------- forward
+
+// One block per (tile of `rows` destination rows, graph b, run z of
+// vectors); thread t serves row t / tpr and the VEC features starting at
+// (z * tpr + t % tpr) * VEC, tpr = HF / VEC threads a row, at most 256.
+// Shared memory: the staged slots [rows, Dp] and count [rows], then the
+// logits (then alpha) [rows, D*H] and their flags [rows, D*H] (bit 0: a
+// real slot, bit 1: its LeakyReLU output is >= 0) at slot positions.
+// alpha_out and pos_out are null when serving. Offsets within a graph are
+// 32-bit (N * HF and N * D * H < 2^31).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads, kFwdMinBlocks<T, VEC>)
+gat_fwd_kernel(const T* __restrict__ z, const T* __restrict__ el,
+               const T* __restrict__ er, const int32_t* __restrict__ nbr,
+               const float* __restrict__ mask, const T* __restrict__ bias,
+               const T* __restrict__ res, T* __restrict__ out,
+               float* __restrict__ alpha_out, uint8_t* __restrict__ pos_out,
+               int N, int D, int H, int F, float slope, bool act, int tpr,
+               int rows, int Dp) {
+  using Bits = typename BitsOf<T>::type;
+  // slots whose loads start together: 2 keeps float32 at 40 registers and
+  // was fastest in both types (scripts/torch_port_kernel_variants.py)
+  constexpr int kFwdChunk = 2;
+  extern __shared__ int2 slots[];                 // [rows, Dp], then count
+  int* count = reinterpret_cast<int*>(slots + rows * Dp);
+  const int DH = D * H;
+  float* w = reinterpret_cast<float*>(count + rows);                // [rows, DH]
+  uint8_t* flag = reinterpret_cast<uint8_t*>(w + rows * DH);        // [rows, DH]
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * rows;
+  const int nt = blockDim.x;
+  const int total = rows * DH;
+  // padded slots keep the -1e30 sentinel and flag 0 (before the staging
+  // barrier)
+  for (int i = threadIdx.x; i < total; i += nt) {
+    w[i] = kNegLarge;
+    flag[i] = 0;
+  }
+  stage_slots<false>(nbr, mask, nullptr, slots, count, b, row0, rows, N, D, Dp);
+
+  // logits of every (row, real slot, head), kStageUnroll a thread in flight
+  const int64_t graph = (int64_t)b * N;
+  for (int i0 = threadIdx.x; i0 < total; i0 += kStageUnroll * nt) {
+    float e[kStageUnroll], q[kStageUnroll];
+    int at[kStageUnroll];
+#pragma unroll
+    for (int u = 0; u < kStageUnroll; ++u) {
+      const int i = i0 + u * nt;
+      at[u] = -1;
+      if (i < total) {
+        const int ri = i / DH;
+        const int rem = i - ri * DH;
+        const int k = rem / H;
+        const int hi = rem - k * H;
+        if (k < count[ri]) {
+          const int2 s = slots[ri * Dp + k];
+          e[u] = load_as_float(el + (graph + s.x) * H + hi);
+          q[u] = load_as_float(er + (graph + row0 + ri) * H + hi);
+          at[u] = ri * DH + s.y * H + hi;         // the slot's position
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStageUnroll; ++u) {
+      if (at[u] >= 0) {
+        const float p = __fadd_rn(e[u], q[u]);
+        const float logit = p >= 0.f ? p : __fmul_rn(p, slope);
+        w[at[u]] = logit;
+        flag[at[u]] = logit >= 0.f ? 3 : 1;
+      }
+    }
+  }
+  __syncthreads();
+
+  // masked softmax over the slot positions, one thread per (row, head),
+  // as the plain version computes it
+  for (int i = threadIdx.x; i < rows * H; i += nt) {
+    const int ri = i / H;
+    float* wr = w + ri * DH + (i - ri * H);
+    const uint8_t* fr = flag + ri * DH + (i - ri * H);
+    float mx = kNegLarge;
+    for (int d = 0; d < D; ++d) mx = fmaxf(mx, wr[d * H]);
+    float sum = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float e = (fr[d * H] & 1) ? expf(__fsub_rn(wr[d * H], mx)) : 0.f;
+      wr[d * H] = e;
+      sum = __fadd_rn(sum, e);
+    }
+    const float inv = __fdiv_rn(1.f, fmaxf(sum, 1e-20f));
+    for (int d = 0; d < D; ++d) wr[d * H] = __fmul_rn(wr[d * H], inv);
+  }
+  __syncthreads();
+
+  // training: alpha and the sign mask of the block's rows, each one
+  // contiguous span
+  if (alpha_out != nullptr && blockIdx.z == 0) {
+    const int n = min(rows, N - row0) * DH;
+    float* ao = alpha_out + (graph + row0) * DH;
+    uint8_t* po = pos_out + (graph + row0) * DH;
+    for (int i = threadIdx.x; i < n; i += nt) {
+      ao[i] = w[i];
+      po[i] = flag[i] >> 1;
+    }
+  }
+
+  // weighted combine over the real slots, in slot order, and the epilogue
+  const int HF = H * F;
+  const int rl = threadIdx.x / tpr;
+  const int r = row0 + rl;
+  const int f = (blockIdx.z * tpr + threadIdx.x - rl * tpr) * VEC;
+  if (rl >= rows || r >= N || f >= HF) return;
+  const int n = count[rl];
+  const int2* rs = slots + rl * Dp;
+  const float* ar = w + rl * DH + f / F;
+  const T* zb = z + graph * HF + f;
+  float acc[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+  for (int k0 = 0; k0 < n; k0 += kFwdChunk) {
+    float a[kFwdChunk];
+    Pack<Bits, VEC> g[kFwdChunk];
+#pragma unroll
+    for (int c = 0; c < kFwdChunk; ++c) {
+      if (k0 + c < n) {
+        const int2 s = rs[k0 + c];
+        a[c] = ar[s.y * H];
+        g[c].raw = load_raw<sizeof(Bits) * VEC>(zb + s.x * HF);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kFwdChunk; ++c) {
+      if (k0 + c < n) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k)
+          acc[k] = __fadd_rn(acc[k], __fmul_rn(a[c], bits_to_float(g[c].v[k])));
+      }
+    }
+  }
+  const int64_t node = graph + r;
+  Pack<Bits, VEC> bv, rv, o;
+  bv.raw = load_raw<sizeof(Bits) * VEC>(bias + f);
+  if (res != nullptr) rv.raw = load_raw<sizeof(Bits) * VEC>(res + node * HF + f);
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    float v = __fadd_rn(acc[k], bits_to_float(bv.v[k]));
+    if (res != nullptr) v = __fadd_rn(v, bits_to_float(rv.v[k]));
+    if (act) v = v > 0.f ? v : __fsub_rn(expf(fminf(v, 0.f)), 1.f);
+    o.v[k] = float_to_bits(v, Bits());
+  }
+  store_raw(out + node * HF + f, o.raw);
+}
+
+// --------------------------------------------------------------- backward
+
+// One block per (tile of `rows` rows, graph b). Thread t is lane t % G of
+// the group t / G, which owns (row, head) = ((t / G) / H, (t / G) % H);
+// lane l holds the head's gout vectors l, l + G, ... (NV of them a run of
+// G * NV vectors; a head of more vectors goes in runs). Shared memory: the
+// staged slots [rows, Dp] and count [rows], d_alpha (then d_pre) [rows,
+// D*H] at slot positions, and sum_d alpha d_alpha [rows, H].
+template <typename T, int VEC, int NV>
+__global__ void __launch_bounds__(kBwdMaxThreads)
+gat_bwd_kernel(const T* __restrict__ gout, const T* __restrict__ z,
+               const float* __restrict__ alpha, const uint8_t* __restrict__ pos,
+               const int32_t* __restrict__ nbr, const float* __restrict__ mask,
+               float* __restrict__ d_pre, float* __restrict__ d_er, int N,
+               int D, int H, int F, int G, int rows, int Dp, float slope) {
+  using Bits = typename BitsOf<T>::type;
+  // slots whose z loads start together: 4 at bfloat16's vectors of 8, 2
+  // elsewhere (float32's vectors of 4 spill at 4 when a lane holds one)
+  // (scripts/torch_port_kernel_variants.py)
+  constexpr int kBwdChunk = VEC == 8 ? 4 : 2;
+  extern __shared__ int2 slots[];                 // [rows, Dp], then count
+  int* count = reinterpret_cast<int*>(slots + rows * Dp);
+  const int DH = D * H;
+  float* da = reinterpret_cast<float*>(count + rows);   // [rows, DH]
+  float* sv = da + rows * DH;                            // [rows, H]
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * rows;
+  const int nt = blockDim.x;
+  for (int i = threadIdx.x; i < rows * DH; i += nt) da[i] = 0.f;
+  stage_slots<false>(nbr, mask, nullptr, slots, count, b, row0, rows, N, D, Dp);
+
+  const int HF = H * F;
+  const int vph = F / VEC;                        // vectors a head
+  const int gl = threadIdx.x & (G - 1);
+  const int pair = threadIdx.x / G;
+  const int rl = pair / H;
+  const int h = pair - rl * H;
+  const bool live = rl < rows && row0 + rl < N;
+  const int n = live ? count[rl] : 0;
+  // every lane of a warp runs every shuffle: the loops' bounds are uniform
+  const int nmax = __reduce_max_sync(0xffffffffu, n);
+  const int64_t graph = (int64_t)b * N;
+  const int64_t node = graph + row0 + rl;
+  const T* go = gout + node * HF + h * F;
+  const T* zb = z + graph * HF + h * F;
+  const int2* rs = slots + rl * Dp;
+  float* dar = da + rl * DH + h;
+  for (int j0 = 0; j0 < vph; j0 += G * NV) {
+    Pack<Bits, VEC> g[NV];                        // this run's gout vectors
+    bool has[NV];
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      const int j = j0 + q * G + gl;
+      has[q] = n > 0 && j < vph;
+      if (has[q]) g[q].raw = load_raw<sizeof(Bits) * VEC>(go + j * VEC);
+    }
+    for (int k0 = 0; k0 < nmax; k0 += kBwdChunk) {
+      Pack<Bits, VEC> zv[kBwdChunk][NV];
+#pragma unroll
+      for (int c = 0; c < kBwdChunk; ++c) {
+        if (k0 + c < n) {
+          const T* zs = zb + rs[k0 + c].x * HF;
+#pragma unroll
+          for (int q = 0; q < NV; ++q)
+            if (has[q])
+              zv[c][q].raw = load_raw<sizeof(Bits) * VEC>(zs + (j0 + q * G + gl) * VEC);
+        }
+      }
+      float part[kBwdChunk];
+#pragma unroll
+      for (int c = 0; c < kBwdChunk; ++c) {
+        part[c] = 0.f;
+        if (k0 + c < n) {
+#pragma unroll
+          for (int q = 0; q < NV; ++q)
+            if (has[q]) {
+#pragma unroll
+              for (int k = 0; k < VEC; ++k)
+                part[c] = fmaf(bits_to_float(g[q].v[k]),
+                               bits_to_float(zv[c][q].v[k]), part[c]);
+            }
+        }
+      }
+      for (int o = G / 2; o > 0; o >>= 1) {
+#pragma unroll
+        for (int c = 0; c < kBwdChunk; ++c)
+          part[c] += __shfl_xor_sync(0xffffffffu, part[c], o);
+      }
+      if (gl == 0) {
+#pragma unroll
+        for (int c = 0; c < kBwdChunk; ++c) {
+          if (k0 + c < n) {
+            float* p = dar + rs[k0 + c].y * H;
+            *p = j0 == 0 ? part[c] : *p + part[c];
+          }
+        }
+      }
+    }
+  }
+  // the group's first lane wrote every d_alpha of its (row, head): it sums
+  // alpha d_alpha over the slot positions in slot order, as the plain
+  // version does
+  if (live && gl == 0) {
+    const float* al = alpha + node * DH + h;
+    float s = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) s = __fadd_rn(s, __fmul_rn(__ldg(al + d * H), dar[d * H]));
+    sv[rl * H + h] = s;
+  }
+  __syncthreads();
+
+  // softmax and LeakyReLU backward over the block's rows, one contiguous
+  // span: alpha, pos and mask read and d_pre written coalesced
+  const int live_rows = min(rows, N - row0);
+  const int64_t base = (graph + row0) * DH;
+  const float* mb = mask + (graph + row0) * D;
+  for (int i = threadIdx.x; i < live_rows * DH; i += nt) {
+    const int r2 = i / DH;
+    const int rem = i - r2 * DH;
+    const int d = rem / H;
+    const int h2 = rem - d * H;
+    const float de = __fmul_rn(__ldg(alpha + base + i), __fsub_rn(da[i], sv[r2 * H + h2]));
+    float dp = __ldg(pos + base + i) ? de : __fmul_rn(de, slope);
+    if (!(__ldg(mb + r2 * D + d) > 0.f)) dp = 0.f;
+    d_pre[base + i] = dp;
+    da[i] = dp;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < live_rows * H; i += nt) {
+    const int r2 = i / H;
+    const float* p = da + r2 * DH + (i - r2 * H);
+    float acc = 0.f;
+    for (int d = 0; d < D; ++d) acc = __fadd_rn(acc, p[d * H]);
+    d_er[(graph + row0) * H + i] = acc;
+  }
+}
+
+// -------------------------------------------------------- reverse combine
+
 // One block per (tile of `rows` destination rows, graph b, run z of
 // vectors); thread t serves row t / tpr and the VEC features starting at
 // (z * tpr + t % tpr) * VEC, tpr = HF / VEC threads a row, at most 256.
@@ -430,7 +573,7 @@ gat_rev_kernel(const T* __restrict__ gout, const float* __restrict__ alpha,
   int* count = reinterpret_cast<int*>(slots + rows * Dp);
   const int b = blockIdx.y;
   const int row0 = blockIdx.x * rows;
-  stage_slots(nbr, mask, rslot, slots, count, b, row0, rows, N, D, Dp);
+  stage_slots<true>(nbr, mask, rslot, slots, count, b, row0, rows, N, D, Dp);
 
   const int HF = H * F;
   const int rl = threadIdx.x / tpr;
@@ -497,36 +640,33 @@ gat_rev_kernel(const T* __restrict__ gout, const float* __restrict__ alpha,
 int check_dims(int B, int N, int D, int H, int F) {
   if (D <= 0 || D > kMaxDegree || H <= 0 || H > kMaxHeads || F <= 0)
     return (int)cudaErrorInvalidValue;
-  (void)B;
-  (void)N;
+  if (B > 65535 || (int64_t)N * H * F >= (1LL << 31) ||
+      (int64_t)N * D * H >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
   return (int)cudaSuccess;
 }
 
-// threads along HF (a power of two up to 256: the output layer's HF=4 takes
-// 4 lanes a row); the rest of the block takes more rows, as many as the
-// shared-memory budget allows (`per_row` bytes each)
-dim3 row_block(int HF, size_t per_row) {
-  int bx = 1;
-  while (bx < HF && bx < kThreads) bx *= 2;
-  int by = kThreads / bx;
-  const int fit = (int)(kSmemBudget / per_row);
-  if (by > fit) by = fit > 0 ? fit : 1;
-  return dim3(bx, by);
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <typename T, bool kAct, bool kRes, bool kSave>
-void launch_fwd_t(dim3 grid, dim3 block, size_t smem, cudaStream_t s,
-                  const void* z, const void* el, const void* er,
-                  const void* nbr, const void* mask, const void* bias,
-                  const void* res, void* out, void* alpha, void* pos, int N,
-                  int D, int H, int F, float slope) {
-  gat_fwd_kernel<T, kAct, kRes, kSave><<<grid, block, smem, s>>>(
-      static_cast<const T*>(z), static_cast<const T*>(el),
-      static_cast<const T*>(er), static_cast<const int32_t*>(nbr),
-      static_cast<const float*>(mask), static_cast<const T*>(bias),
-      static_cast<const T*>(res), static_cast<T*>(out),
-      static_cast<float*>(alpha), static_cast<uint8_t*>(pos), N, D, H, F,
-      slope);
+// Calls launch(std::integral_constant<int, VEC>()) with the widest vector
+// of at most 16 bytes that divides F and to which every pointer in `ptrs`
+// is aligned.
+template <typename T, typename Launch>
+int dispatch_vec(int F, std::initializer_list<const void*> ptrs, Launch launch) {
+  auto fits = [&](int vec) {
+    if (F % vec) return false;
+    for (const void* p : ptrs)
+      if (p != nullptr && !aligned(p, vec * (int)sizeof(T))) return false;
+    return true;
+  };
+  if constexpr (sizeof(T) == 2) {
+    if (fits(8)) return launch(std::integral_constant<int, 8>());
+  }
+  if (fits(4)) return launch(std::integral_constant<int, 4>());
+  if (fits(2)) return launch(std::integral_constant<int, 2>());
+  return launch(std::integral_constant<int, 1>());
 }
 
 template <typename T>
@@ -537,29 +677,59 @@ int launch_fwd(const void* z, const void* el, const void* er, const void* nbr,
   const int rc = check_dims(B, N, D, H, F);
   if (rc != (int)cudaSuccess) return rc;
   if (B <= 0 || N <= 0) return (int)cudaSuccess;
-  const size_t per_row = (size_t)D * (1 + H) * sizeof(float);
-  const dim3 block = row_block(H * F, per_row);
-  const dim3 grid((N + block.y - 1) / block.y, B);
-  const size_t smem = block.y * per_row;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool has_res = res != nullptr;
-#define GTS_FWD(A, R, S)                                                      \
-  launch_fwd_t<T, A, R, S>(grid, block, smem, s, z, el, er, nbr, mask, bias, \
-                           res, out, alpha, pos, N, D, H, F, slope)
-  if (act) {
-    if (has_res) {
-      if (save) GTS_FWD(true, true, true); else GTS_FWD(true, true, false);
-    } else {
-      if (save) GTS_FWD(true, false, true); else GTS_FWD(true, false, false);
-    }
-  } else {
-    if (has_res) {
-      if (save) GTS_FWD(false, true, true); else GTS_FWD(false, true, false);
-    } else {
-      if (save) GTS_FWD(false, false, true); else GTS_FWD(false, false, false);
-    }
-  }
-#undef GTS_FWD
+  return dispatch_vec<T>(F, {z, bias, res, out}, [&](auto vec) {
+    constexpr int VEC = decltype(vec)::value;
+    const int vecs = H * F / VEC;                   // vectors a row
+    const int tpr = std::min(vecs, kThreads);       // threads a row
+    const int Dp = D | 1;   // odd row stride: no bank conflicts between rows
+    const size_t per_row = (size_t)Dp * sizeof(int2) + sizeof(int) +
+                           (size_t)D * H * (sizeof(float) + 1);
+    // as many rows as fill 256 threads, at most kMaxRows, within 48 KB of
+    // shared memory (at least 4 rows at D=128, H=16)
+    const int rows = std::min({kThreads / tpr, kMaxRows, (int)(kSmemBudget / per_row)});
+    const int threads = (rows * tpr + 31) / 32 * 32;   // whole warps: ballots
+    const dim3 grid((N + rows - 1) / rows, B, (vecs + tpr - 1) / tpr);
+    const size_t smem = (rows * per_row + 3) / 4 * 4;
+    gat_fwd_kernel<T, VEC><<<grid, threads, smem, s>>>(
+        static_cast<const T*>(z), static_cast<const T*>(el),
+        static_cast<const T*>(er), static_cast<const int32_t*>(nbr),
+        static_cast<const float*>(mask), static_cast<const T*>(bias),
+        static_cast<const T*>(res), static_cast<T*>(out),
+        save ? static_cast<float*>(alpha) : nullptr,
+        save ? static_cast<uint8_t*>(pos) : nullptr, N, D, H, F, slope,
+        act != 0, tpr, rows, Dp);
+    return (int)cudaGetLastError();
+  });
+}
+
+template <typename T, int VEC, int NV>
+int launch_bwd_vec(const void* gout, const void* z, const void* alpha,
+                   const void* pos, const void* nbr, const void* mask,
+                   void* d_pre, void* d_er, int B, int N, int D, int H, int F,
+                   float slope, cudaStream_t s) {
+  // lanes per (row, head): a power of two, up to 32, covering the head's
+  // vectors NV a lane
+  const int vph = F / VEC;
+  int G = 1;
+  while (G < 32 && G * NV < vph) G *= 2;
+  const int lanes = H * G;                        // lanes a row, <= 512
+  const int Dp = D | 1;
+  const size_t per_row = (size_t)Dp * sizeof(int2) + sizeof(int) +
+                         (size_t)(D + 1) * H * sizeof(float);
+  // as many rows as fill 256 threads (a row of more lanes takes its own
+  // block), at most kMaxRows, within 48 KB of shared memory (at least 5
+  // rows at D=128, H=16)
+  const int rows = std::max(1, std::min({kThreads / lanes, kMaxRows,
+                                         (int)(kSmemBudget / per_row)}));
+  const int threads = (rows * lanes + 31) / 32 * 32;   // whole warps: shuffles
+  const dim3 grid((N + rows - 1) / rows, B);
+  gat_bwd_kernel<T, VEC, NV><<<grid, threads, rows * per_row, s>>>(
+      static_cast<const T*>(gout), static_cast<const T*>(z),
+      static_cast<const float*>(alpha), static_cast<const uint8_t*>(pos),
+      static_cast<const int32_t*>(nbr), static_cast<const float*>(mask),
+      static_cast<float*>(d_pre), static_cast<float*>(d_er), N, D, H, F, G,
+      rows, Dp, slope);
   return (int)cudaGetLastError();
 }
 
@@ -571,25 +741,16 @@ int launch_bwd(const void* gout, const void* z, const void* alpha,
   const int rc = check_dims(B, N, D, H, F);
   if (rc != (int)cudaSuccess) return rc;
   if (B <= 0 || N <= 0) return (int)cudaSuccess;
-  // lanes per (row, head): a power of two covering F, at least 4 (so at
-  // most 64 groups a block keep D floats each within 32 KB at D = 128)
-  int G = 4;
-  while (G < F && G < 32) G *= 2;
-  const int groups = kThreads / G;
-  const int64_t pairs = (int64_t)N * H;
-  const dim3 grid((unsigned)((pairs + groups - 1) / groups), B);
-  const size_t smem = (size_t)groups * D * sizeof(float);
-  gat_bwd_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(gout), static_cast<const T*>(z),
-      static_cast<const float*>(alpha), static_cast<const uint8_t*>(pos),
-      static_cast<const int32_t*>(nbr), static_cast<const float*>(mask),
-      static_cast<float*>(d_pre), static_cast<float*>(d_er), N, D, H, F, G,
-      slope);
-  return (int)cudaGetLastError();
-}
-
-bool aligned(const void* p, int bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch_vec<T>(F, {gout, z}, [&](auto vec) {
+    constexpr int VEC = decltype(vec)::value;
+    // two vectors a lane once a head has 64 or more (F=256 in float32)
+    if (F / VEC >= 64)
+      return launch_bwd_vec<T, VEC, 2>(gout, z, alpha, pos, nbr, mask, d_pre,
+                                       d_er, B, N, D, H, F, slope, s);
+    return launch_bwd_vec<T, VEC, 1>(gout, z, alpha, pos, nbr, mask, d_pre, d_er,
+                                     B, N, D, H, F, slope, s);
+  });
 }
 
 template <typename T, int VEC>
@@ -623,26 +784,12 @@ int launch_rev(const void* gout, const void* alpha, const void* d_pre,
   const int rc = check_dims(B, N, D, H, F);
   if (rc != (int)cudaSuccess) return rc;
   if (B <= 0 || N <= 0) return (int)cudaSuccess;
-  if (B > 65535 || (int64_t)N * H * F >= (1LL << 31) ||
-      (int64_t)N * D * H >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the widest vector of at most 16 bytes that divides F and to which both
-  // feature pointers are aligned
-  auto fits = [&](int vec) {
-    return F % vec == 0 && aligned(gout, vec * (int)sizeof(T)) &&
-           aligned(d_z, vec * (int)sizeof(T));
-  };
-#define GTS_REV(VEC)                                                           \
-  launch_rev_vec<T, VEC>(gout, alpha, d_pre, nbr, mask, rslot, d_z, d_el, B, \
-                         N, D, H, F, s)
-  if constexpr (sizeof(T) == 2) {
-    if (fits(8)) return GTS_REV(8);
-  }
-  if (fits(4)) return GTS_REV(4);
-  if (fits(2)) return GTS_REV(2);
-  return GTS_REV(1);
-#undef GTS_REV
+  return dispatch_vec<T>(F, {gout, d_z}, [&](auto vec) {
+    return launch_rev_vec<T, decltype(vec)::value>(gout, alpha, d_pre, nbr, mask,
+                                                   rslot, d_z, d_el, B, N, D, H,
+                                                   F, s);
+  });
 }
 
 }  // namespace

@@ -8,7 +8,9 @@ Replaces, in gnn_tumor_seg_tpu/ops/pallas/fused_gat.py,
 All three are CUDA C++ (csrc/fused_gat.cu), built for sm_90a with nvcc into
 a shared library with a plain C interface at first use and loaded with
 ctypes, as max_agg.cu is; its header gives the formulas, what bounds the
-kernels (bytes) and what the design does about that.
+kernels (bytes, and the re-reads of gathered rows from L2) and what the
+design does about that. The kernels pick their vector width from F and the
+alignment of the feature tensors, so any contiguous tensor is taken.
 
 Each wrapper launches its kernel on a CUDA tensor and takes its plain
 version (`*_plain`) only for a CPU tensor: on a CUDA tensor it launches the
@@ -134,8 +136,10 @@ def fused_gat_backward_plain(gout, z, alpha, pos, nbr, nbr_mask, slope=0.2):
       d_pre          = mask * LeakyReLU'(pre) * alpha * (d_alpha - sum_d alpha d_alpha)
       d_er           = sum_d d_pre
 
-    in float32, the sums over slots in slot order (the dot over F is
-    torch's sum, another order than the kernel's shuffle tree)."""
+    in float32, the sums over slots in slot order. The dot over F is
+    torch's sum; the kernel takes another order (each lane's FMAs over its
+    vectors of a head, then a shuffle tree over the head's lanes), so the
+    two agree within a tolerance, not bitwise."""
     B, N, H, F = gout.shape
     D = nbr.shape[2]
     f32 = torch.float32

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Time variants of the PyTorch port's max_agg_bwd, slot_gather, wsum,
-wsum_bwd and gat_rev kernels on one NVIDIA H100.
+wsum_bwd, gat_rev, gat_fwd and gat_bwd kernels on one NVIDIA H100.
 
 Run from the repository root on a machine with the card:
 
-    python3 scripts/torch_port_kernel_variants.py [--against DIR]
+    python3 scripts/torch_port_kernel_variants.py [--against DIR ...] [--gat]
 
 max_agg_bwd: gnn_tumor_seg_tpu_torch/ops/kernels/csrc/max_agg.cu with its
 `kChunk` line (how many slots' loads a thread starts together) set to 1, 2,
@@ -20,12 +20,24 @@ weighted_sum.cu's wsum and wsum_bwd at the main path's (H,F)
 (chip_smoke.DECOMPOSED_SHAPES) and fused_gat.cu's gat_rev at the hardcoded
 GAT's, each with its `kChunk` line set to 2, 4, 8, or 4 at vectors of 8
 and 2 elsewhere, on both tables, float32 and bfloat16, with random weights (alpha and d_pre for gat_rev) that are not
-symmetric; each held bitwise to its plain PyTorch version.
+symmetric; each held bitwise to its plain PyTorch version. The fused GAT
+forward (training variant, alpha and sign mask stored, and serve variant)
+and backward at the hardcoded GAT's (H,F) and layer epilogues, with
+fused_gat.cu's `kFwdChunk` or `kBwdChunk` line set to 2, 4, 8 or the
+shipped value, its `kMaxRows` line (the rows a block takes at most) set
+to 64 or 256, or the forward's `kFwdMinBlocks` (its launch bound, blocks
+an SM) to 1, 6 or 8 for every type and width, on both tables, float32
+and bfloat16: the forward held to its plain version within
+chip_smoke.GAT_FWD_TOL (bf16 output: one ulp beyond it) with its sign
+mask bitwise, the serve variant bitwise equal to the training one, the
+backward within chip_smoke.GAT_BWD_TOL.
 
---against DIR builds DIR's copies of the four sources (for example a `git
-archive` of another commit; their C interfaces must be this checkout's) and
-times them beside these. Sources are built with nvcc for sm_90a into the
-port's _build/ directory; times are device ms per call by CUDA-graph replay
+--gat times the three GAT kernels alone. --against DIR (repeatable) builds
+DIR's copies of the four sources (for example a `git archive` of another
+commit; their C interfaces must be this checkout's) and times them beside
+these, named "against" for the first DIR and "against:DIR" for the
+others. Sources are built with nvcc for sm_90a into the port's _build/
+directory; times are device ms per call by CUDA-graph replay
 (chip_smoke.time_device). Prints the card, ptxas' registers and spills per
 kernel, and one line of times per shape.
 """
@@ -58,6 +70,19 @@ CHUNKS = ("1", "2", "4", "8", "VEC == 8 ? 1 : 4", "VEC == 8 ? 2 : 4")
 # the weighted combines' kChunk values (gat_rev ships the last, wsum the first)
 COMBINE_CHUNKS = ("2", "4", "8", "VEC == 8 ? 4 : 2")
 CHUNK_LINE = re.compile(r"constexpr int kChunk = [^;]+;")
+# fused_gat.cu's forward and backward chunk lines and the values swept (the
+# last of each is what ships)
+FWD_CHUNKS = ("4", "8", "2")
+FWD_CHUNK_LINE = re.compile(r"constexpr int kFwdChunk = [^;]+;")
+BWD_CHUNKS = ("2", "4", "8", "VEC == 8 ? 4 : 2")
+BWD_CHUNK_LINE = re.compile(r"constexpr int kBwdChunk = [^;]+;")
+# the rows a forward or backward block takes at most (128 ships), and the
+# forward's bound on registers as blocks an SM (8, or 6 at bfloat16's
+# vectors of 8, ships)
+MAX_ROWS = ("64", "256")
+MAX_ROWS_LINE = re.compile(r"constexpr int kMaxRows = [^;]+;")
+MIN_BLOCKS = ("1", "6", "8")
+MIN_BLOCKS_LINE = re.compile(r"constexpr int kFwdMinBlocks = [^;]+;")
 CSRC = os.path.join("gnn_tumor_seg_tpu_torch", "ops", "kernels", "csrc")
 VP, I32 = ctypes.c_void_p, ctypes.c_int
 
@@ -69,7 +94,7 @@ def build(stem: str, source: str) -> ctypes.CDLL:
         f.write(source)
     lib, log = build_cuda_library(stem, path)
     for kern, regs, stores, loads in cs.ptxas_kernels(log):
-        if any(k in kern for k in ("max_agg_bwd", "slot_gather", "wsum", "gat_rev")):
+        if any(k in kern for k in ("max_agg_bwd", "slot_gather", "wsum", "gat_")):
             print(f"[build] {stem}: {kern}: {regs} registers, spill stores "
                   f"{stores} B, loads {loads} B", flush=True)
     if hasattr(lib, "gts_max_agg_bwd_f32"):
@@ -77,6 +102,12 @@ def build(stem: str, source: str) -> ctypes.CDLL:
     elif hasattr(lib, "gts_wsum_f32"):
         fns, args = (lib.gts_wsum_f32, lib.gts_wsum_bf16), [VP] * 6 + [I32] * 6
     elif hasattr(lib, "gts_gat_rev_f32"):
+        for fn in (lib.gts_gat_fwd_f32, lib.gts_gat_fwd_bf16):
+            fn.argtypes = [VP] * 10 + [I32] * 5 + [ctypes.c_float, I32, I32, VP]
+            fn.restype = I32
+        for fn in (lib.gts_gat_bwd_f32, lib.gts_gat_bwd_bf16):
+            fn.argtypes = [VP] * 8 + [I32] * 5 + [ctypes.c_float, VP]
+            fn.restype = I32
         fns, args = (lib.gts_gat_rev_f32, lib.gts_gat_rev_bf16), [VP] * 8 + [I32] * 5
     else:
         fns, args = (lib.gts_slot_gather_f32, lib.gts_slot_gather_bf16), [VP] * 4 + [I32] * 4
@@ -86,36 +117,55 @@ def build(stem: str, source: str) -> ctypes.CDLL:
     return lib
 
 
-def build_all(against: str | None) -> dict:
+def build_all(against: list[str], gat_only: bool) -> dict:
     """Every variant, one nvcc each, all started together: {kind: {name:
     library}} for the kinds "bwd" (max_agg.cu), "gather" (slot_gather.cu),
-    "wsum" (weighted_sum.cu) and "rev" (fused_gat.cu)."""
+    "wsum" (weighted_sum.cu), and "rev", "fwd", "gbwd" and "rows"
+    (fused_gat.cu, whose gat_rev, gat_fwd and gat_bwd chunk lines, its
+    kMaxRows line and the forward's kFwdMinBlocks line are swept in turn);
+    only the last four when `gat_only`."""
     def read(path):
         with open(path) as f:
             return f.read()
 
-    def chunked(kind, stem, path, chunks):
+    def chunked(kind, stem, path, chunks, line=CHUNK_LINE):
         source = read(path)
-        if len(CHUNK_LINE.findall(source)) != 1:
-            raise SystemExit(f"expected one kChunk line in {path}")
-        return {(kind, f"kChunk={c}"): (f"{stem}_chunk{i}", CHUNK_LINE.sub(
-            f"constexpr int kChunk = {c};", source)) for i, c in enumerate(chunks)}
+        if len(line.findall(source)) != 1:
+            raise SystemExit(f"expected one {line.pattern} line in {path}")
+        name = line.pattern.split()[2]
+        return {(kind, f"{name}={c}"): (f"{stem}_{name}{i}", line.sub(
+            f"constexpr int {name} = {c};", source)) for i, c in enumerate(chunks)}
 
-    jobs = {**chunked("bwd", "max_agg", max_agg._SOURCE, CHUNKS),
-            **chunked("wsum", "weighted_sum", weighted_sum._SOURCE, COMBINE_CHUNKS),
-            **chunked("rev", "fused_gat", fused_gat._SOURCE, COMBINE_CHUNKS),
-            ("gather", "this"): ("slot_gather_this", read(slot_gather._SOURCE))}
-    if against:
-        for kind, stem in (("bwd", "max_agg"), ("gather", "slot_gather"),
-                           ("wsum", "weighted_sum"), ("rev", "fused_gat")):
-            jobs[(kind, "against")] = (f"{stem}_against",
-                                       read(os.path.join(against, CSRC, f"{stem}.cu")))
+    jobs = {**chunked("rev", "fused_gat", fused_gat._SOURCE, COMBINE_CHUNKS),
+            **chunked("fwd", "fused_gat", fused_gat._SOURCE, FWD_CHUNKS, FWD_CHUNK_LINE),
+            **chunked("gbwd", "fused_gat", fused_gat._SOURCE, BWD_CHUNKS, BWD_CHUNK_LINE),
+            **chunked("rows", "fused_gat", fused_gat._SOURCE, MAX_ROWS, MAX_ROWS_LINE),
+            **chunked("fwd", "fused_gat", fused_gat._SOURCE, MIN_BLOCKS, MIN_BLOCKS_LINE)}
+    if not gat_only:
+        jobs.update({**chunked("bwd", "max_agg", max_agg._SOURCE, CHUNKS),
+                     **chunked("wsum", "weighted_sum", weighted_sum._SOURCE,
+                               COMBINE_CHUNKS),
+                     ("gather", "this"): ("slot_gather_this", read(slot_gather._SOURCE))})
+    stems = (("rev", "fused_gat"),) if gat_only else (
+        ("bwd", "max_agg"), ("gather", "slot_gather"), ("wsum", "weighted_sum"),
+        ("rev", "fused_gat"))
+    names = ["against"] + [f"against:{d}" for d in against[1:]]
+    for i, (name, other) in enumerate(zip(names, against)):
+        for kind, stem in stems:
+            jobs[(kind, name)] = (f"{stem}_against{i}",
+                                  read(os.path.join(other, CSRC, f"{stem}.cu")))
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {key: pool.submit(build, *job) for key, job in jobs.items()}
         libs = {key: fut.result() for key, fut in futures.items()}
     out = {}
     for (kind, name), lib in libs.items():
         out.setdefault(kind, {})[name] = lib
+    # the kMaxRows builds time the forward and the backward; one build of
+    # the other checkout's fused_gat.cu serves all three kernels
+    for kind in ("fwd", "gbwd"):
+        out[kind].update(out["rows"])
+        for name in names:
+            out[kind][name] = libs[("rev", name)]
     return out
 
 
@@ -154,13 +204,13 @@ def time_combines(libs, tname, nbr, mask, rslot, gen) -> None:
     gat_shapes = cs.gat_head_shapes(cs.gat_layers())
     for dtype in (torch.float32, torch.bfloat16):
         f32 = dtype == torch.float32
-        for H, F in dict.fromkeys(cs.DECOMPOSED_SHAPES + gat_shapes):
+        for H, F in dict.fromkeys(cs.DECOMPOSED_SHAPES * ("wsum" in libs) + gat_shapes):
             x = torch.randn((B, N, H, F), generator=gen, device=dev).to(dtype)
             w = torch.rand((B, N, D, H), generator=gen, device=dev)
             alpha = torch.rand((B, N, D * H), generator=gen, device=dev)
             d_pre = torch.randn((B, N, D * H), generator=gen, device=dev)
             cases = {}
-            if (H, F) in cs.DECOMPOSED_SHAPES:
+            if "wsum" in libs and (H, F) in cs.DECOMPOSED_SHAPES:
                 for reverse, kname in ((0, "wsum"), (1, "wsum_bwd")):
                     want = (weighted_sum_reverse_plain(x, w, nbr, mask, rslot) if reverse
                             else weighted_sum_plain(x, w, nbr, mask))
@@ -195,6 +245,87 @@ def time_combines(libs, tname, nbr, mask, rslot, gen) -> None:
             del x, w, alpha, d_pre, cases
 
 
+def time_gat(libs, tname, nbr, mask) -> None:
+    """gat_fwd (training and serve variants) and gat_bwd at the hardcoded
+    GAT's (H,F) and layer epilogues, f32 and bf16: every build of each,
+    held to the plain version within its tolerance, then timed."""
+    from gnn_tumor_seg_tpu_torch.ops.kernels.fused_gat import (
+        fused_gat_backward_plain, fused_gat_forward_plain)
+
+    dev = nbr.device
+    B, N, D = nbr.shape
+    layers = cs.gat_layers()
+    rng = np.random.default_rng(cs.SEED + 7)
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        for H, F in cs.gat_head_shapes(layers):
+            x = cs.gat_inputs(rng, B, N, H, F, dtype, dev)
+            z, gout = x["z"], x["gout"]
+            tag = f"{tname} {str(dtype)[6:]} H={H} F={F}"
+            for act, with_res in sorted({(a, r) for h, f, a, r in layers
+                                         if (h, f) == (H, F)}, key=str):
+                res = x["res"] if with_res else None
+                want = fused_gat_forward_plain(z, x["el"], x["er"], nbr, mask, 0.2, act,
+                                               res, x["bias"])
+                for save in (True, False):
+                    times = {}
+                    for name, lib in libs["fwd"].items():
+                        def run(lib=lib, save=save):
+                            out = torch.empty_like(z)
+                            alpha = pos = None
+                            if save:
+                                alpha = torch.empty((B, N, D * H), device=dev)
+                                pos = torch.empty((B, N, D * H), dtype=torch.uint8,
+                                                  device=dev)
+                            rc = (lib.gts_gat_fwd_f32 if f32 else lib.gts_gat_fwd_bf16)(
+                                z.data_ptr(), x["el"].data_ptr(), x["er"].data_ptr(),
+                                nbr.data_ptr(), mask.data_ptr(), x["bias"].data_ptr(),
+                                None if res is None else res.data_ptr(), out.data_ptr(),
+                                None if alpha is None else alpha.data_ptr(),
+                                None if pos is None else pos.data_ptr(), B, N, D, H, F,
+                                0.2, int(act == "elu"), int(save),
+                                torch.cuda.current_stream().cuda_stream)
+                            if rc != 0:
+                                raise RuntimeError(f"gat_fwd {name}: launch failed ({rc})")
+                            return out, alpha, pos
+                        out, alpha, pos = run()
+                        err = cs.within(out, want[0], not f32)
+                        if save:
+                            err = max(err, cs.within(alpha, want[1]))
+                            if not torch.equal(pos, want[2]):
+                                raise SystemExit(f"gat_fwd {name}: sign mask differs ({tag})")
+                        if err > cs.GAT_FWD_TOL:
+                            raise SystemExit(f"gat_fwd {name} differs from the plain "
+                                             f"version ({tag} act={act}): {err:.3g}")
+                        times[name] = cs.time_device(run)
+                    print(f"[gat_fwd{'' if save else '_serve'}] {tag} act={act} "
+                          f"res={with_res}: " + ", ".join(
+                              f"{k} {t:.5f} ms" for k, t in times.items()), flush=True)
+            alpha, pos = want[1], want[2]
+            w_pre, w_er = fused_gat_backward_plain(gout, z, alpha, pos, nbr, mask)
+            times = {}
+            for name, lib in libs["gbwd"].items():
+                def run(lib=lib):
+                    d_pre = torch.empty((B, N, D * H), device=dev)
+                    d_er = torch.empty((B, N, H), device=dev)
+                    rc = (lib.gts_gat_bwd_f32 if f32 else lib.gts_gat_bwd_bf16)(
+                        gout.data_ptr(), z.data_ptr(), alpha.data_ptr(), pos.data_ptr(),
+                        nbr.data_ptr(), mask.data_ptr(), d_pre.data_ptr(), d_er.data_ptr(),
+                        B, N, D, H, F, 0.2, torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        raise RuntimeError(f"gat_bwd {name}: launch failed ({rc})")
+                    return d_pre, d_er
+                d_pre, d_er = run()
+                err = max(cs.within(d_pre, w_pre), cs.within(d_er, w_er))
+                if err > cs.GAT_BWD_TOL:
+                    raise SystemExit(f"gat_bwd {name} differs from the plain version "
+                                     f"({tag}): {err:.3g}")
+                times[name] = cs.time_device(run)
+            print(f"[gat_bwd] {tag}: " + ", ".join(
+                f"{k} {t:.5f} ms" for k, t in times.items()), flush=True)
+            del x, z, gout, want, alpha, pos
+
+
 def launcher(fn, args, name):
     def run(out):
         rc = fn(*args(out), torch.cuda.current_stream().cuda_stream)
@@ -206,19 +337,25 @@ def launcher(fn, args, name):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--against", help="a checkout whose kernel sources to time too")
+    parser.add_argument("--against", action="append", default=[],
+                        help="a checkout whose kernel sources to time too (repeatable)")
+    parser.add_argument("--gat", action="store_true",
+                        help="time the three fused GAT kernels alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device is available; nothing was run", file=sys.stderr)
         return 1
     print(cs.card_line(), flush=True)
-    libs = build_all(args.against)
-    bwd, gather = libs["bwd"], libs["gather"]
+    libs = build_all(args.against, args.gat)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     for tname, arrays in tables().items():
         nbr, mask, rslot = (torch.from_numpy(a).to(dev) for a in arrays)
+        time_gat(libs, tname, nbr, mask)
         time_combines(libs, tname, nbr, mask, rslot, gen)
+        if args.gat:
+            continue
+        bwd, gather = libs["bwd"], libs["gather"]
         B, N, D = nbr.shape
         for dtype in (torch.float32, torch.bfloat16):
             f32 = dtype == torch.float32

@@ -127,6 +127,91 @@ def test_fused_attention_and_vjp_match_jax_dense(graphs, H, F, act, with_res):
                                    atol=1e-5, err_msg=name)
 
 
+def _holed_mask(tg, rng, frac=0.2, empty_rows=5):
+    """The batch's mask with both ends of a fraction of the edges masked off
+    (real slots after padded ones; padded slots keep their neighbour ids)
+    and every edge of `empty_rows` real rows a graph masked off too (rows
+    with no real slot besides the padded rows)."""
+    nbr, rslot = tg.nbr.numpy(), tg.rslot.numpy()
+    mask = tg.nbr_mask.numpy().copy()
+    drop = rng.random(mask.shape) < frac
+    for g in range(mask.shape[0]):
+        drop[g, rng.choice(200, empty_rows, replace=False)] = True
+    b, v, d = np.nonzero(drop & (mask > 0))
+    mask[b, v, d] = 0
+    mask[b, nbr[b, v, d], rslot[b, v, d]] = 0
+    assert ((mask[..., 1:] > 0) & (mask[..., :-1] == 0)).any()         # holes
+    assert (mask[:, :220].sum(-1) == 0).sum() >= 2 * empty_rows        # empty rows
+    return mask
+
+
+def _jax_pre_reference(nbr, mask, act, with_res):
+    """The JAX dense attention as a function of the pre-activation logits
+    p = el[nbr] + er [B,N,D,H], whose gradient is d_pre."""
+    def ref(p, z, res, bias):
+        B, N, H, F = z.shape
+        e = jnp.where(mask[..., None] > 0, jax.nn.leaky_relu(p, SLOPE), -1e30)
+        e = e - jax.lax.stop_gradient(jnp.max(e, axis=2, keepdims=True))
+        w = jnp.exp(e) * mask[..., None]
+        alpha = w / jnp.maximum(jnp.sum(w, axis=2, keepdims=True), 1e-20)
+        zsrc = jax.vmap(lambda a, i: a[i])(z.reshape(B, N, H * F), nbr)
+        out = jnp.einsum("bndh,bndhf->bnhf", alpha, zsrc.reshape(B, N, -1, H, F))
+        if with_res:
+            out = out + res.reshape(B, N, H, F)
+        out = out + bias.reshape(H, F)
+        return jax.nn.elu(out) if act == "elu" else out
+    return ref
+
+
+@pytest.mark.parametrize("with_res", [False, True], ids=["no_res", "res"])
+@pytest.mark.parametrize("act", [None, "elu"], ids=["none", "elu"])
+@pytest.mark.parametrize("H,F", [(1, 4), (3, 16), (2, 6)])
+def test_plain_forward_and_backward_match_jax_dense_on_holes(graphs, H, F, act,
+                                                             with_res):
+    """fused_gat_forward_plain and fused_gat_backward_plain, which the
+    kernels must equal, against the JAX dense reference on a table with
+    holes in the mask, rows with no real slot, and a head whose logits all
+    tie in every row (el constant): out, alpha (rows sum to 1 or are 0),
+    d_pre and d_er, float32, rtol/atol 1e-5."""
+    jg, tg = graphs
+    rng = np.random.default_rng(100 + 10 * H + F)
+    mask = _holed_mask(tg, rng)
+    x = _inputs(tg, H, F, seed=20 * H + F)
+    x["el"][..., 0] = 0.25                         # head 0: every logit of a row ties
+    nbr = tg.nbr.numpy()
+    B, N, D = nbr.shape
+    res = x["res"] if with_res else None
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    out, alpha, pos = fused_gat.fused_gat_forward_plain(
+        t["z"], t["el"], t["er"], tg.nbr, torch.from_numpy(mask), SLOPE, act,
+        None if res is None else t["res"], t["bias"])
+    jgh = type("Holed", (), {"nbr": jg.nbr, "nbr_mask": jnp.asarray(mask)})
+    want, vjp = jax.vjp(_jax_reference(jgh, act, with_res),
+                        *(jnp.asarray(x[k]) for k in ("z", "el", "er", "res", "bias")))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    a = alpha.reshape(B, N, D, H).numpy()
+    real = (mask.sum(-1) > 0)
+    np.testing.assert_allclose(a.sum(2)[real], 1.0, rtol=1e-5, atol=1e-5)
+    assert not a[~real].any() and not a[mask == 0].any()
+    assert np.allclose(a[..., 0][real], (mask / mask.sum(-1, keepdims=True).clip(1))[real])
+
+    ct = np.random.default_rng(3).normal(size=want.shape).astype(np.float32)
+    gout = torch.from_numpy(ct)
+    if act == "elu":             # as FusedGatAttention.backward: ELU' from the output
+        gout = gout * torch.where(out > 0, 1.0, out + 1.0)
+    d_pre, d_er = fused_gat.fused_gat_backward_plain(gout, t["z"], alpha, pos, tg.nbr,
+                                                     torch.from_numpy(mask), SLOPE)
+    p = (np.take_along_axis(x["el"], nbr.reshape(B, N * D, 1), 1).reshape(B, N, D, H)
+         + x["er"][:, :, None, :])
+    _, vjp_p = jax.vjp(_jax_pre_reference(jg.nbr, jnp.asarray(mask), act, with_res),
+                       jnp.asarray(p), *(jnp.asarray(x[k]) for k in ("z", "res", "bias")))
+    np.testing.assert_allclose(d_pre.reshape(B, N, D, H).numpy(),
+                               np.asarray(vjp_p(jnp.asarray(ct))[0]), rtol=1e-5, atol=1e-5)
+    want_er = np.asarray(vjp(jnp.asarray(ct))[2])
+    np.testing.assert_allclose(d_er.numpy(), want_er, rtol=1e-5, atol=1e-5)
+    assert not d_pre.reshape(B, N, D, H).numpy()[mask == 0].any()
+
+
 @pytest.mark.parametrize("H,F", [(1, 4), (3, 16)])
 def test_fused_attention_matches_jax_interpret_kernel(graphs, H, F):
     jg, tg = graphs
