@@ -14,16 +14,19 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    the pair dot) and slot_gather.cu (the per-slot gather and its backward)
    (nvcc, sm_90a) and the native host library (g++), all from the sources in
    this checkout, one compiler process each, in parallel; ptxas' registers
-   and spills of wsum_kernel, gat_fwd_kernel, gat_bwd_kernel and
-   gat_rev_kernel are logged, and a spill fails the run;
+   and spills of sum_agg_kernel, max_agg_kernel, wsum_kernel,
+   gat_fwd_kernel, gat_bwd_kernel and gat_rev_kernel are logged, and a
+   spill fails the run;
 3. kernel check: max_agg against its plain PyTorch version on the card at
    random tables of the node bucket 8192 (B=1, D=12/16, F=20/256, f32 and
    bf16, with and without the winner-slot store) and at edge cases; then,
    at the training shapes (B=6, N=8192, D=12/16, F=3/20/36/256, f32 and
    bf16) on random symmetric tables with ties and rows without a neighbour,
-   max_agg with its store, max_agg_bwd and sum_agg (sum and mean), and the
-   first two at D=128 (F=6, 256) and F=515. Every result must be bitwise
-   equal to the plain version's, and two runs of each backward kernel
+   max_agg with its store and as the serve variant (whose out must equal
+   the store variant's), max_agg_bwd and sum_agg (sum and mean), also at
+   D=12 on a table with holes, with h and gout one element off alignment
+   (F=20, 256), at D=128 (F=6, 256) and F=515. Every result must be bitwise
+   equal to the plain version's, and two runs of max_agg_bwd and of sum_agg
    bitwise equal to each other. Then the three GAT kernels at the
    training shapes ((H,F) = (4,256), (3,256), (1,4), and (2,36), (3,6),
    (1,515) for every vector width of the reverse combine; tied logits,
@@ -85,7 +88,8 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    gradients within GAT_GRAD_TOL of the plain path's under one generator
    seed);
 7. training timing: the flagship GSpool step, the GAT step, the weighted
-   GSmean step and the GAT step with attention dropout in "exact" and
+   GSmean step, the GAT step with attention dropout and, last, the GSmean
+   step (7 sum_agg forward, 6 backward) in "exact" and
    "fast" (median step time, edges_per_s), torch.profiler over 3 more steps
    of each (device busy and idle share, top kernels), and per kernel at the
    batch's own table (B=6, N=8192, D=12): device time (CUDA-graph replay),
@@ -248,10 +252,12 @@ def phase_build() -> None:
             if name.endswith("(nvcc sm_90a)"):
                 for line in out.strip().splitlines():
                     log(f"[build]   {line}")
-            if name.startswith(("weighted_sum.cu", "fused_gat.cu")):
+            if name.startswith(("weighted_sum.cu", "fused_gat.cu", "sum_agg.cu",
+                                "max_agg.cu")):
                 for kern, regs, stores, loads in ptxas_kernels(out):
                     if any(k in kern for k in ("wsum_kernel", "gat_fwd_kernel",
-                                               "gat_bwd_kernel", "gat_rev_kernel")):
+                                               "gat_bwd_kernel", "gat_rev_kernel",
+                                               "sum_agg_kernel", "max_agg_kernel")):
                         log(f"[build] {kern}: {regs} registers, spill stores "
                             f"{stores} B, spill loads {loads} B")
                         check(stores == loads == 0, f"{kern} spills registers")
@@ -404,14 +410,16 @@ def phase_train_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
                              B=TRAIN_BATCH) -> dict:
     """The training kernels against their plain versions on the card at the
     training shapes (B=6, N=8192 of which 7000 real, D=12/16, f32 and bf16)
-    at F = 3, 20, 36, 256 (max_agg_bwd's vector widths 1, 4, 4, 8), on
-    random symmetric tables with ties and rows without a neighbour: max_agg
-    with its winner-slot store, max_agg_bwd, and sum_agg (sum and mean),
-    bitwise; two backward runs bitwise equal to each other (determinism).
-    Then max_agg and max_agg_bwd alone at the largest degree bucket (D=128;
-    F=6, vectors of 2) and at F=515, where the backward's 515 vectors of 1
-    take three blocks a row. Returns the largest difference seen per kernel
-    (0 when bitwise)."""
+    at F = 3, 20, 36, 256 (vectors of 1, 4, 4 and 4 in f32 or 8 in bf16),
+    on random symmetric tables with ties and rows without a neighbour:
+    max_agg with its winner-slot store, its serve variant (out bitwise equal
+    to the store variant's), max_agg_bwd, and sum_agg (sum and mean),
+    bitwise; two runs of max_agg_bwd and sum_agg bitwise equal to each other
+    (determinism). The same at D=12 on a table with holes (real slots after
+    padded ones), with h and gout one element off alignment (vectors of 1),
+    at the largest degree bucket (D=128; F=6, vectors of 2) and at F=515,
+    where 515 vectors of 1 take three blocks a row. Returns the largest
+    difference seen per kernel (0 when bitwise)."""
     from gnn_tumor_seg_tpu_torch.ops.kernels.max_agg import (
         max_aggregate, max_aggregate_backward, max_aggregate_backward_plain,
         max_aggregate_plain)
@@ -427,8 +435,10 @@ def phase_train_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
         check(torch.equal(_bits(got), _bits(want)),
               f"{kernel} differs from its plain version ({tag}): max abs {err}")
 
-    def run_case(B, N, D, n_real, widths, sums=True):
+    def run_case(B, N, D, n_real, widths, holes=False, shift=False):
         nbr_np, mask_np, rslot_np = symmetric_tables(rng, B, N, D, n_real=n_real)
+        if holes:
+            mask_np = punch_holes(rng, nbr_np, mask_np, rslot_np)
         nbr, mask, rslot = (torch.from_numpy(a).to(dev)
                             for a in (nbr_np, mask_np, rslot_np))
         for F in widths:
@@ -437,19 +447,25 @@ def phase_train_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
             ties = torch.from_numpy(rng.integers(-8, 8, shape) / 4.0).float().to(dev)
             gout32 = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
             for dtype in (torch.float32, torch.bfloat16):
-                tag = f"B={B} N={N} D={D} F={F} {str(dtype)[6:]}"
+                tag = (f"B={B} N={N} D={D} F={F} {str(dtype)[6:]}"
+                       + " holed" * holes + " misaligned" * shift)
                 h, gout = ties.to(dtype), gout32.to(dtype)
+                if shift:
+                    h, gout = misaligned(h), misaligned(gout)
                 out, arg = max_aggregate(h, nbr, mask, with_arg=True)
                 want_out, want_arg = max_aggregate_plain(h, nbr, mask)
                 same(out, want_out, "max_agg", tag)
                 check(torch.equal(arg, want_arg), f"max_agg arg differs ({tag})")
+                served, _ = max_aggregate(h, nbr, mask, with_arg=False)
+                check(torch.equal(_bits(served), _bits(out)),
+                      f"max_agg's serve variant differs from its store variant ({tag})")
                 grad = max_aggregate_backward(gout, arg, nbr, mask, rslot)
                 again = max_aggregate_backward(gout, arg, nbr, mask, rslot)
                 same(grad, max_aggregate_backward_plain(gout, arg, nbr, mask, rslot),
                      "max_agg_bwd", tag)
                 check(torch.equal(_bits(grad), _bits(again)),
                       f"max_agg_bwd is not deterministic ({tag})")
-                for mean in ((False, True) if sums else ()):
+                for mean in (False, True):
                     x = gout if mean else h
                     got = sum_aggregate(x, nbr, mask, mean)
                     again = sum_aggregate(x, nbr, mask, mean)
@@ -460,15 +476,19 @@ def phase_train_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
                 if dev.type == "cuda":
                     torch.cuda.synchronize()
                 log(f"[kernel] bitwise equal to plain, deterministic: {tag}: "
-                    f"max_agg (arg stored), max_agg_bwd"
-                    + (", sum_agg sum and mean" if sums else ""))
+                    f"max_agg (arg stored, and its serve variant), max_agg_bwd, "
+                    f"sum_agg sum and mean")
 
     for D in (12, 16):
         run_case(B, N, D, n_real, TRAIN_KERNEL_WIDTHS)
+    # real slots after padded ones
+    run_case(B, N, 12, n_real, TRAIN_KERNEL_WIDTHS, holes=True)
+    # h and gout one element off alignment: vectors of 1
+    run_case(B, N, 12, n_real, (IN_FEATS, TRAIN_WIDTHS[0]), shift=True)
     # the largest degree bucket, N not a multiple of any block's rows
-    run_case(2, 777, 128, 700, (6, 256), sums=False)
+    run_case(2, 777, 128, 700, (6, 256))
     # more than 256 vectors a row (F odd: vectors of 1)
-    run_case(1, 300, 12, 300, (515,), sums=False)
+    run_case(1, 300, 12, 300, (515,))
     return worst
 
 
@@ -1637,10 +1657,10 @@ def profile_train_steps(trainer, card, steps: int = 3) -> dict:
 
 def time_train_steps(dataset, card, model_type="GSpool", steps: int = 8,
                      attn_drop: float = 0.0) -> dict:
-    """A training step of a cell (GSpool [256]*6, GSmean [256]*6 on a
-    weighted dataset, or the hardcoded GAT, with attention dropout when
-    `attn_drop`; batch 6 x 8192) through GNNTrainer.run_epoch, one step per
-    epoch, in "exact" and "fast": the median epoch wall time (host clock,
+    """A training step of a cell (GSpool [256]*6, GSmean [256]*6 on the
+    unweighted or the weighted dataset, or the hardcoded GAT, with attention
+    dropout when `attn_drop`; batch 6 x 8192) through GNNTrainer.run_epoch,
+    one step per epoch, in "exact" and "fast": the median epoch wall time (host clock,
     ending in the epoch's one synchronize) after 2 warm-up epochs, and
     edges_per_s (real edges x layers / step time, bench.py:160-161); then 3
     more steps under the profiler for the idle share and the top kernels."""
@@ -2141,17 +2161,24 @@ def main() -> int:
     import gnn_tumor_seg_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     t_all = time.perf_counter()
+
+    def done(phases):
+        log(f"[time] {phases} done at {time.perf_counter() - t_all:.1f} s")
+
     env = phase_environment()
     card = env["card"]
     phase_build()
+    done("phases 1-2")
     dev = torch.device("cuda")
     worst = phase_kernel_check(dev)
     train_worst = phase_train_kernel_check(dev)
     gat_worst = phase_gat_kernel_check(dev)
     dec_worst = phase_decomposed_kernel_check(dev)
     check_gat_dropout_trains(dev)
+    done("phase 3")
     serve = phase_serve("cuda", card=card)
     timing = phase_timing(serve["graph"], card)
+    done("phases 4-5")
     worst = max(worst, timing["max_abs_err"], train_worst["max_agg"])
     with tempfile.TemporaryDirectory(prefix="gts_smoke_train_") as tmp:
         train = phase_train(tmp, card)
@@ -2162,6 +2189,7 @@ def main() -> int:
         dataset = ImageGraphDataset(train["data_dir"], read_image=False)
         wdataset = ImageGraphDataset(weighted["data_dir"], read_image=False)
         drop = phase_train_gat_dropout(dataset, card)
+        done("phase 6")
         step = time_train_steps(dataset, card)
         ttime = phase_train_timing(dataset, card)
         gat_step = time_train_steps(dataset, card, "GAT")
@@ -2169,6 +2197,9 @@ def main() -> int:
         wstep = time_train_steps(wdataset, card, "GSmean")
         drop_step = time_train_steps(dataset, card, "GAT", attn_drop=GAT_ATTN_DROP)
         dtime = phase_decomposed_timing(dataset, card)
+        # last, so that the cells timed before it run as they did without it
+        mean_step = time_train_steps(dataset, card, "GSmean")
+    done("phase 7")
     paths = {"train": train["runs"], "preprocess_weighted": {"prep": prep["run"]},
              "train_weighted": weighted["runs"], "train_gat_attndrop": drop["runs"]}
     by_path = {path: {k: sum(r["counts"][k] for r in runs.values())
@@ -2236,6 +2267,10 @@ def main() -> int:
                 f"(forward) + 6 sum at F=256 (backward), {table}; library: "
                 "F.embedding_bag(mode='mean'/'sum', padding_idx)"),
         "fast_bf16": per_step(rows, gsmean_parts, "bfloat16"),
+        "gsmean_step": {mode: {"step_ms": row["step_ms"],
+                               "busy_ms_3_steps": row["profile"]["busy_ms"],
+                               "idle_share": row["profile"]["idle_share"]}
+                        for mode, row in mean_step.items()},
     }]
     gtable = f"B={gtime['B']}, N={gtime['N']}, D={gtime['D']}"
     gat_desc = ("hardcoded GAT, (H, F, activation, residual) per layer: "
@@ -2373,7 +2408,8 @@ def main() -> int:
     check(serve["gat"]["launches"] > 0, "gat_fwd was never launched on the serve path")
     for label, st in (("step", step), ("GAT step", gat_step),
                       ("weighted GSmean step", wstep),
-                      (f"GAT attn_drop={GAT_ATTN_DROP} step", drop_step)):
+                      (f"GAT attn_drop={GAT_ATTN_DROP} step", drop_step),
+                      ("GSmean step", mean_step)):
         log(f"[train] {label}: " + json.dumps(
             {mode: {k: v for k, v in row.items() if k != "profile"}
              for mode, row in st.items()}))

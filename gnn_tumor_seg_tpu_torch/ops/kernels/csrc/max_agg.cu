@@ -27,22 +27,49 @@
 //
 // What bounds both on an H100: bytes at best. They do one compare (and,
 // backward, one add) per (v, d, f), far below the card's operation rate.
-// Forward traffic is h read once (for a full-size brain's node bucket, 12288
-// x 256 x 4 B = 12.6 MB, which fits the 50 MB L2, so the D-fold re-reads of
-// neighbour rows mostly hit L2), plus nbr and mask (N x D x 4 B each), plus
-// out (N x F) and, when it is stored, arg (N x F bytes). Backward reads gout
-// and arg once (B x N x F x (4 + 1) B), nbr, mask and rslot (3 x N x D x 4 B)
-// and writes grad. In practice the backward is bound by how many loads are in
-// flight: each real slot needs a load of arg and then, where arg names the
-// slot, a load of gout that depends on it, and the D-fold re-reads of arg
-// come from L2.
+// Forward traffic is the referenced rows of h read once (for a full-size
+// brain's node bucket, 12288 x 256 x 4 B = 12.6 MB, which fits the 50 MB L2,
+// so the D-fold re-reads of neighbour rows mostly hit L2), plus nbr and mask
+// (N x D x 4 B each), plus out (N x F) and, when it is stored, arg (N x F
+// bytes). The bound counts each referenced row once; the forward re-reads it
+// once per real slot, from L2 at best, so a good forward sits at some 2-3x
+// the bound, as the weighted combine does (weighted_sum.cu). Backward reads
+// gout and arg once (B x N x F x (4 + 1) B), nbr, mask and rslot (3 x N x D
+// x 4 B) and writes grad. In practice the backward is bound by how many
+// loads are in flight: each real slot needs a load of arg and then, where
+// arg names the slot, a load of gout that depends on it, and the D-fold
+// re-reads of arg come from L2.
 //
-// Forward design (first, simple version): one block per (batch, tile of
-// destination rows); threads run along F so each neighbour row is read with
-// coalesced loads; the block stages its rows' neighbour indices (padded
-// slots as -1) in shared memory once, so the inner loop over D reads only h.
-// The running max and slot stay in registers. Tails of N and F are masked.
-// The serve path discards `arg`, so a template flag drops its store there.
+// Forward design (the weighted combine's, weighted_sum.cu, with a compare in
+// place of the multiply-add). The TPU kernel's one-hot MXU gathers over a
+// compacted unique-row block (gather_agg.py:135-163) work around slow row
+// gathers on the TPU; here the kernel reads nbr directly.
+//  * Each thread owns an aligned vector of VEC contiguous features (VEC = 8,
+//    4, 2 or 1, the widest that divides F, keeps a load at 16 bytes, and to
+//    which h, out and, when stored, arg are aligned: float32 4 and bfloat16 8
+//    at F=256, 4 at F=20), read as one vector; out is written as one vector
+//    and arg as one of VEC bytes.
+//  * Threads map flat onto (row, vector): at F=256 in float32 a row takes 64
+//    threads and a block of 256 four rows; at F=20 a block takes 51 rows, so
+//    no lane idles. Blocks take whole warps over their rows. A row of more
+//    than 256 vectors (F=515) takes a third grid dimension over feature
+//    runs. Graphs are the slower grid dimension (blockIdx.y), so a wave
+//    gathers from the rows of about one graph, which stay in L2.
+//  * Staging, one round trip: the block loads mask and nbr of all its rows'
+//    slots at once (kStageUnroll entries a thread in flight), then compacts
+//    each row's real slots in slot order in shared memory with warp ballots,
+//    as (source row, slot d) pairs, and keeps their number. The feature loop
+//    runs over the real slots alone and stores the original slot d of the
+//    winner, so a table with holes (real slots after padded ones) gives the
+//    plain version's arg.
+//  * kAggChunk slots' vector loads are in flight before their compares. The
+//    compares then run in slot order with a strict `>` against a running
+//    best from -1e30, so the first winner keeps the slot, across chunks too;
+//    a row with no real slot gives out 0 and arg 0. The serve path discards
+//    `arg`, so a template flag drops its store (and the slot tracking) there.
+//  * kAggChunk and the launch bound (kAggMinBlocks, blocks of 256 threads an
+//    SM that the registers must allow) were tuned together
+//    (scripts/torch_port_kernel_variants.py --agg).
 //
 // Backward design: each thread owns a vector of VEC contiguous features
 // (VEC = 8, 4, 2 or 1, the widest that divides F), read as one aligned
@@ -75,70 +102,17 @@ namespace {
 
 constexpr float kNegLarge = -1e30f;
 constexpr int kMaxDegree = 128;
-constexpr int kThreadsPerBlock = 256;
+constexpr int kThreads = 256;
+constexpr size_t kSmemBudget = 48 * 1024;
+// table entries (mask, nbr) a forward thread loads together while staging
+constexpr int kStageUnroll = 4;
+// blocks of 256 threads an SM that the forward's registers must allow: 6
+// (40 registers a thread); a bound of 8 (32 registers) spills the store
+// variant's float32 vectors of 4 and bfloat16's of 8
+// (scripts/torch_port_kernel_variants.py --agg)
+constexpr int kAggMinBlocks = 6;
 
-__device__ __forceinline__ float load_as_float(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_as_float(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
-}
-__device__ __forceinline__ void store_from_float(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_from_float(__nv_bfloat16* p, float v) {
-  // round to nearest even; exact for the forward, whose v is 0 or read from bf16
-  *p = __float2bfloat16(v);
-}
-
-template <typename T, bool kStoreArg>
-__global__ void max_agg_kernel(const T* __restrict__ h,
-                               const int32_t* __restrict__ nbr,
-                               const float* __restrict__ mask,
-                               T* __restrict__ out, uint8_t* __restrict__ arg,
-                               int N, int D, int F) {
-  extern __shared__ int32_t slots[];  // [blockDim.y, D]: source row or -1
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.x * blockDim.y;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int n_threads = blockDim.x * blockDim.y;
-  for (int i = tid; i < blockDim.y * D; i += n_threads) {
-    const int r = row0 + i / D;
-    int32_t s = -1;
-    if (r < N) {
-      const int64_t off = ((int64_t)b * N + r) * D + i % D;
-      if (mask[off] > 0.f) s = nbr[off];
-    }
-    slots[i] = s;
-  }
-  __syncthreads();
-
-  const int r = row0 + threadIdx.y;
-  if (r >= N) return;
-  const int32_t* row_slots = slots + threadIdx.y * D;
-  const T* hb = h + (int64_t)b * N * F;
-  const int64_t o = ((int64_t)b * N + r) * F;
-  for (int f = threadIdx.x; f < F; f += blockDim.x) {
-    float best = kNegLarge;
-    int win = 0;
-    bool any = false;
-    for (int d = 0; d < D; ++d) {
-      const int32_t u = row_slots[d];
-      if (u < 0) continue;
-      any = true;
-      const float v = load_as_float(hb + (int64_t)u * F + f);
-      if (v > best) {
-        best = v;
-        win = d;
-      }
-    }
-    store_from_float(out + o + f, any ? best : 0.f);
-    if (kStoreArg) arg[o + f] = (uint8_t)win;
-  }
-}
-
-// ---- backward ----
-
-constexpr int kBwdThreads = 256;
-// rows x D slots staged a block, as int2: 48 000 bytes, under the 48 KB a
-// block gets without opting in (D=128 leaves 46 rows)
-constexpr int kMaxStaged = 6000;
+// ---- shared by both ----
 
 // BYTES bytes moved with the widest aligned accesses (two 16-byte ones at 32)
 template <int BYTES> struct Raw { uint4 w[BYTES / 16]; };
@@ -185,6 +159,153 @@ __device__ __forceinline__ uint32_t float_to_bits(float v, uint32_t) { return __
 __device__ __forceinline__ uint16_t float_to_bits(float v, uint16_t) {
   return __bfloat16_as_ushort(__float2bfloat16(v));   // round to nearest even
 }
+
+// ---- forward ----
+
+// Stages, for rows row0 .. row0 + rows - 1 of graph b, the real slots of
+// each row in slot order as pairs (source row, slot d) in slots[rl * Dp
+// ...] and their number in count[rl]. Every thread of the block calls it (it
+// holds two barriers); blockDim.x is a multiple of 32.
+__device__ __forceinline__ void stage_slots(const int32_t* __restrict__ nbr,
+                                            const float* __restrict__ mask,
+                                            int2* slots, int* count, int b,
+                                            int row0, int rows, int N, int D,
+                                            int Dp) {
+  const int nt = blockDim.x;
+  const int total = rows * D;
+  const int64_t base = ((int64_t)b * N + row0) * D;
+  const int last = min(rows, N - row0) * D - 1;   // the block's last table entry
+  // one round trip: each thread's kStageUnroll entries are all in flight
+  // before any is read (offsets clamped into the table, so no load branches)
+  for (int i0 = threadIdx.x; i0 < total; i0 += kStageUnroll * nt) {
+    float m[kStageUnroll];
+    int32_t s[kStageUnroll];
+#pragma unroll
+    for (int u = 0; u < kStageUnroll; ++u) {
+      const int64_t off = base + min(i0 + u * nt, last);
+      m[u] = __ldg(mask + off);
+      s[u] = __ldg(nbr + off);
+    }
+#pragma unroll
+    for (int u = 0; u < kStageUnroll; ++u) {
+      const int i = i0 + u * nt;
+      if (i < total) {
+        const int rl = i / D;
+        const int d = i - rl * D;
+        const bool real = i <= last && m[u] > 0.f;
+        slots[rl * Dp + d] = real ? make_int2(s[u], d) : make_int2(-1, 0);
+      }
+    }
+  }
+  __syncthreads();
+  // compaction in place: P lanes a row (D rounded up to a power of two, at
+  // most 32), so a warp takes 32 / P rows at a time; a row of more than 32
+  // slots goes in runs of 32. A lane's slot moves to the number of real
+  // slots before it, never past where it was read.
+  int P = 1;
+  while (P < D && P < 32) P *= 2;
+  const int per_warp = 32 / P;
+  const int lane = threadIdx.x & 31;
+  const int seg = lane / P;
+  const int j = lane - seg * P;
+  const unsigned below = (1u << j) - 1u;
+  for (int rb = (threadIdx.x >> 5) * per_warp; rb < rows; rb += (nt >> 5) * per_warp) {
+    const int rl = rb + seg;          // the loops' bounds are uniform in a warp
+    int n = 0;
+    for (int d0 = 0; d0 < D; d0 += P) {
+      const int d = d0 + j;
+      int2 e = make_int2(-1, 0);
+      if (rl < rows && d < D) e = slots[rl * Dp + d];
+      const unsigned bits = __ballot_sync(0xffffffffu, e.x >= 0);
+      const unsigned mine = P == 32 ? bits : (bits >> (seg * P)) & ((1u << P) - 1u);
+      if (e.x >= 0) slots[rl * Dp + n + __popc(mine & below)] = e;
+      n += __popc(mine);
+    }
+    if (j == 0 && rl < rows) count[rl] = n;
+  }
+  __syncthreads();
+}
+
+// One block per (tile of `rows` destination rows, graph b, run z of
+// vectors); thread t serves row t / tpr and the VEC features starting at
+// (z * tpr + t % tpr) * VEC, tpr = F / VEC threads a row, at most 256.
+// Offsets within a graph are 32-bit (N * F < 2^31). The serve path discards
+// `arg`, so kStoreArg drops its store there.
+template <typename T, bool kStoreArg, int VEC>
+__global__ void __launch_bounds__(kThreads, kAggMinBlocks)
+max_agg_kernel(const T* __restrict__ h, const int32_t* __restrict__ nbr,
+               const float* __restrict__ mask, T* __restrict__ out,
+               uint8_t* __restrict__ arg, int N, int D, int F, int tpr,
+               int rows, int Dp) {
+  using Bits = typename BitsOf<T>::type;
+  // slots whose vector loads start together: the store variant's winner
+  // slots hold registers, and 2 beat 4 there at F=256 (0.075 against 0.105
+  // ms in float32, 0.057 against 0.064 in bfloat16, NVIDIA H100 80GB HBM3,
+  // 700 W); the serve variant takes 4 (scripts/torch_port_kernel_variants.py
+  // --agg)
+  constexpr int kAggChunk = kStoreArg ? 2 : 4;
+  extern __shared__ int2 staged[];                // [rows, Dp], then count
+  int* count = reinterpret_cast<int*>(staged + rows * Dp);
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * rows;
+  stage_slots(nbr, mask, staged, count, b, row0, rows, N, D, Dp);
+
+  const int rl = threadIdx.x / tpr;
+  const int r = row0 + rl;
+  const int f = (blockIdx.z * tpr + threadIdx.x - rl * tpr) * VEC;
+  if (rl >= rows || r >= N || f >= F) return;
+  const int n = count[rl];
+  const int2* rs = staged + rl * Dp;
+  const T* hb = h + (int64_t)b * N * F + f;
+  // the winners' slots as VEC bytes, packed four to a register
+  float best[VEC];
+  Pack<uint8_t, VEC> win;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    best[k] = kNegLarge;
+    win.v[k] = 0;
+  }
+  for (int k0 = 0; k0 < n; k0 += kAggChunk) {
+    int d[kAggChunk];
+    Pack<Bits, VEC> v[kAggChunk];
+#pragma unroll
+    for (int c = 0; c < kAggChunk; ++c) {
+      if (k0 + c < n) {
+        const int2 s = rs[k0 + c];
+        d[c] = s.y;
+        v[c].raw = load_raw<sizeof(Bits) * VEC>(hb + s.x * F);
+      }
+    }
+    // in slot order with a strict `>`: the first slot that attains the max
+    // wins, as in the plain version
+#pragma unroll
+    for (int c = 0; c < kAggChunk; ++c) {
+      if (k0 + c < n) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          const float x = bits_to_float(v[c].v[k]);
+          if (x > best[k]) {
+            best[k] = x;
+            win.v[k] = (uint8_t)d[c];
+          }
+        }
+      }
+    }
+  }
+  const int64_t o = ((int64_t)b * N + r) * F + f;
+  Pack<Bits, VEC> ov;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) ov.v[k] = float_to_bits(n > 0 ? best[k] : 0.f, Bits());
+  store_raw(out + o, ov.raw);
+  if (kStoreArg) store_raw(arg + o, win.raw);
+}
+
+// ---- backward ----
+
+constexpr int kBwdThreads = 256;
+// rows x D slots staged a block, as int2: 48 000 bytes, under the 48 KB a
+// block gets without opting in (D=128 leaves 46 rows)
+constexpr int kMaxStaged = 6000;
 
 // One block per (tile of `rows` destination rows, graph b, run z of
 // features); thread t serves row t / tpr and the VEC features starting at
@@ -279,11 +400,40 @@ max_agg_bwd_kernel(const T* __restrict__ gout, const uint8_t* __restrict__ arg,
   store_raw(grad + ((int64_t)b * N + r) * F + f, o.raw);
 }
 
-// threads along F: a warp per row at F <= 32 (F=20 on the first GSpool
-// layer), up to 128 lanes at wide F; the rest of the block takes more rows
-dim3 block_for(int F) {
-  const int bx = F >= 128 ? 128 : ((F + 31) / 32) * 32;
-  return dim3(bx, kThreadsPerBlock / bx);
+// ---- launches ----
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+template <typename T, int VEC>
+int launch_vec(const void* h, const void* nbr, const void* mask, void* out,
+               void* arg, int B, int N, int D, int F, int store_arg,
+               cudaStream_t s) {
+  const int vecs = F / VEC;                       // vectors a row
+  const int tpr = std::min(vecs, kThreads);       // threads a row
+  const int Dp = D | 1;   // odd row stride: no bank conflicts between rows
+  const size_t per_row = (size_t)Dp * sizeof(int2) + sizeof(int);
+  // as many rows as fill 256 threads, within 48 KB of staged slots (at
+  // least 47 rows at D=128)
+  const int rows = std::min(kThreads / tpr, (int)(kSmemBudget / per_row));
+  const int threads = (rows * tpr + 31) / 32 * 32;   // whole warps: ballots
+  // graphs are the slower grid dimension: a wave of blocks gathers from the
+  // rows of about one graph, which stay in L2
+  const dim3 grid((N + rows - 1) / rows, B, (vecs + tpr - 1) / tpr);
+  if (grid.z > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = rows * per_row;
+  const T* hp = static_cast<const T*>(h);
+  const int32_t* np = static_cast<const int32_t*>(nbr);
+  const float* mp = static_cast<const float*>(mask);
+  T* op = static_cast<T*>(out);
+  if (store_arg)
+    max_agg_kernel<T, true, VEC><<<grid, threads, smem, s>>>(
+        hp, np, mp, op, static_cast<uint8_t*>(arg), N, D, F, tpr, rows, Dp);
+  else
+    max_agg_kernel<T, false, VEC><<<grid, threads, smem, s>>>(
+        hp, np, mp, op, nullptr, N, D, F, tpr, rows, Dp);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -291,27 +441,21 @@ int launch(const void* h, const void* nbr, const void* mask, void* out,
            void* arg, int B, int N, int D, int F, int store_arg,
            void* stream) {
   if (B <= 0 || N <= 0 || F <= 0) return (int)cudaSuccess;
-  if (D <= 0 || D > kMaxDegree) return (int)cudaErrorInvalidValue;
-  const dim3 block = block_for(F);
-  const dim3 grid((N + block.y - 1) / block.y, B);
-  const size_t smem = (size_t)block.y * D * sizeof(int32_t);
+  if (D <= 0 || D > kMaxDegree || B > 65535 || (int64_t)N * F >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (store_arg) {
-    max_agg_kernel<T, true><<<grid, block, smem, s>>>(
-        static_cast<const T*>(h), static_cast<const int32_t*>(nbr),
-        static_cast<const float*>(mask), static_cast<T*>(out),
-        static_cast<uint8_t*>(arg), N, D, F);
-  } else {
-    max_agg_kernel<T, false><<<grid, block, smem, s>>>(
-        static_cast<const T*>(h), static_cast<const int32_t*>(nbr),
-        static_cast<const float*>(mask), static_cast<T*>(out), nullptr, N, D,
-        F);
+  // the widest vector of at most 16 bytes that divides F and to which h,
+  // out and (when stored) arg are aligned
+  auto fits = [&](int vec) {
+    return F % vec == 0 && aligned(h, vec * (int)sizeof(T)) &&
+           aligned(out, vec * (int)sizeof(T)) && (!store_arg || aligned(arg, vec));
+  };
+  if constexpr (sizeof(T) == 2) {
+    if (fits(8)) return launch_vec<T, 8>(h, nbr, mask, out, arg, B, N, D, F, store_arg, s);
   }
-  return (int)cudaGetLastError();
-}
-
-bool aligned(const void* p, int bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+  if (fits(4)) return launch_vec<T, 4>(h, nbr, mask, out, arg, B, N, D, F, store_arg, s);
+  if (fits(2)) return launch_vec<T, 2>(h, nbr, mask, out, arg, B, N, D, F, store_arg, s);
+  return launch_vec<T, 1>(h, nbr, mask, out, arg, B, N, D, F, store_arg, s);
 }
 
 template <typename T, int VEC>

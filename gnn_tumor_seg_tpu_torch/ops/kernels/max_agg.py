@@ -114,6 +114,12 @@ def _check_table(ref: torch.Tensor, nbr, nbr_mask, name: str) -> None:
         raise ValueError(f"expected {name} [B,N,F] and nbr, nbr_mask [B,N,D]; "
                          f"got {tuple(ref.shape)}, {tuple(nbr.shape)}, "
                          f"{tuple(nbr_mask.shape)}")
+    # before any other check, so a meta tensor of a graph too large is
+    # refused for its size
+    if ref.shape[1] * ref.shape[2] >= 2 ** 31:
+        raise ValueError(f"the aggregation kernels index a graph's rows with "
+                         f"32-bit integers; N*F = {ref.shape[1] * ref.shape[2]}"
+                         f" >= 2**31")
     if ref.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name} must be float32 or bfloat16, got {ref.dtype}")
     if nbr.dtype != torch.int32 or nbr_mask.dtype != torch.float32:
@@ -181,12 +187,9 @@ def max_aggregate_backward(gout: torch.Tensor, arg: torch.Tensor,
             or rslot.device != gout.device or not rslot.is_contiguous():
         raise ValueError("rslot must be a contiguous int32 tensor shaped and "
                          "placed like nbr")
-    B, N, F = gout.shape
-    if N * F >= 2 ** 31:
-        raise ValueError(f"max_agg_bwd indexes a graph's rows with 32-bit "
-                         f"integers; N*F = {N * F} >= 2**31")
     if _LIB is None:
         build()
+    B, N, F = gout.shape
     D = nbr.shape[2]
     grad = torch.empty_like(gout)
     fn = (_LIB.gts_max_agg_bwd_f32 if gout.dtype == torch.float32

@@ -1,10 +1,20 @@
 #!/usr/bin/env python3
-"""Time variants of the PyTorch port's max_agg_bwd, slot_gather, wsum,
-wsum_bwd, gat_rev, gat_fwd and gat_bwd kernels on one NVIDIA H100.
+"""Time variants of the PyTorch port's sum_agg, max_agg, max_agg_bwd,
+slot_gather, wsum, wsum_bwd, gat_rev, gat_fwd and gat_bwd kernels on one
+NVIDIA H100.
 
 Run from the repository root on a machine with the card:
 
-    python3 scripts/torch_port_kernel_variants.py [--against DIR ...] [--gat]
+    python3 scripts/torch_port_kernel_variants.py [--against DIR ...] [--gat | --agg]
+
+sum_agg and max_agg: sum_agg.cu and max_agg.cu with their forward's
+`kAggChunk` line (how many slots' vector loads a thread starts together)
+set to 2, 4 or 8 and their `kAggMinBlocks` line (the launch bound: blocks
+of 256 threads an SM that the registers must allow) set to 1, 4, 6 or 8,
+each pair a build, beside the shipped source; sum_agg as sum and mean,
+max_agg with the winner slot stored and as the serve variant, at F=20 and
+256, float32 and bfloat16, on both tables below, each held bitwise to its
+plain PyTorch version.
 
 max_agg_bwd: gnn_tumor_seg_tpu_torch/ops/kernels/csrc/max_agg.cu with its
 `kChunk` line (how many slots' loads a thread starts together) set to 1, 2,
@@ -32,14 +42,14 @@ chip_smoke.GAT_FWD_TOL (bf16 output: one ulp beyond it) with its sign
 mask bitwise, the serve variant bitwise equal to the training one, the
 backward within chip_smoke.GAT_BWD_TOL.
 
---gat times the three GAT kernels alone. --against DIR (repeatable) builds
-DIR's copies of the four sources (for example a `git archive` of another
-commit; their C interfaces must be this checkout's) and times them beside
-these, named "against" for the first DIR and "against:DIR" for the
-others. Sources are built with nvcc for sm_90a into the port's _build/
-directory; times are device ms per call by CUDA-graph replay
-(chip_smoke.time_device). Prints the card, ptxas' registers and spills per
-kernel, and one line of times per shape.
+--gat times the three GAT kernels alone, --agg sum_agg and max_agg alone.
+--against DIR (repeatable) builds DIR's copies of the five sources (for
+example a `git archive` of another commit; their C interfaces must be
+this checkout's) and times them beside these, named "against" for the
+first DIR and "against:DIR" for the others. Sources are built with nvcc
+for sm_90a into the port's _build/ directory; times are device ms per
+call by CUDA-graph replay (chip_smoke.time_device). Prints the card,
+ptxas' registers and spills per kernel, and one line of times per shape.
 """
 
 from __future__ import annotations
@@ -62,7 +72,7 @@ import chip_smoke as cs  # noqa: E402
 from gnn_tumor_seg_tpu_torch.build import BUILD_DIR, build_cuda_library  # noqa: E402
 from gnn_tumor_seg_tpu_torch.ops.graph import ell_from_edges, reciprocal_slots  # noqa: E402
 from gnn_tumor_seg_tpu_torch.ops.kernels import (  # noqa: E402
-    fused_gat, max_agg, slot_gather, weighted_sum)
+    fused_gat, max_agg, slot_gather, sum_agg, weighted_sum)
 
 # max_agg_bwd's kChunk values: constants, and per vector width (VEC = 8 at
 # F=256, 4 at F=20)
@@ -83,6 +93,12 @@ MAX_ROWS = ("64", "256")
 MAX_ROWS_LINE = re.compile(r"constexpr int kMaxRows = [^;]+;")
 MIN_BLOCKS = ("1", "6", "8")
 MIN_BLOCKS_LINE = re.compile(r"constexpr int kFwdMinBlocks = [^;]+;")
+# sum_agg's and max_agg's forward chunk and launch-bound lines, swept as
+# pairs
+AGG_CHUNKS = ("2", "4", "8")
+AGG_CHUNK_LINE = re.compile(r"constexpr int kAggChunk = [^;]+;")
+AGG_MIN_BLOCKS = ("1", "4", "6", "8")
+AGG_MIN_BLOCKS_LINE = re.compile(r"constexpr int kAggMinBlocks = [^;]+;")
 CSRC = os.path.join("gnn_tumor_seg_tpu_torch", "ops", "kernels", "csrc")
 VP, I32 = ctypes.c_void_p, ctypes.c_int
 
@@ -94,10 +110,15 @@ def build(stem: str, source: str) -> ctypes.CDLL:
         f.write(source)
     lib, log = build_cuda_library(stem, path)
     for kern, regs, stores, loads in cs.ptxas_kernels(log):
-        if any(k in kern for k in ("max_agg_bwd", "slot_gather", "wsum", "gat_")):
+        if any(k in kern for k in ("max_agg", "sum_agg", "slot_gather", "wsum", "gat_")):
             print(f"[build] {stem}: {kern}: {regs} registers, spill stores "
                   f"{stores} B, loads {loads} B", flush=True)
-    if hasattr(lib, "gts_max_agg_bwd_f32"):
+    if hasattr(lib, "gts_sum_agg_f32"):
+        fns, args = (lib.gts_sum_agg_f32, lib.gts_sum_agg_bf16), [VP] * 4 + [I32] * 5
+    elif hasattr(lib, "gts_max_agg_bwd_f32"):
+        for fn in (lib.gts_max_agg_f32, lib.gts_max_agg_bf16):
+            fn.argtypes = [VP] * 5 + [I32] * 5 + [VP]
+            fn.restype = I32
         fns, args = (lib.gts_max_agg_bwd_f32, lib.gts_max_agg_bwd_bf16), [VP] * 6 + [I32] * 4
     elif hasattr(lib, "gts_wsum_f32"):
         fns, args = (lib.gts_wsum_f32, lib.gts_wsum_bf16), [VP] * 6 + [I32] * 6
@@ -117,13 +138,15 @@ def build(stem: str, source: str) -> ctypes.CDLL:
     return lib
 
 
-def build_all(against: list[str], gat_only: bool) -> dict:
+def build_all(against: list[str], only: str | None) -> dict:
     """Every variant, one nvcc each, all started together: {kind: {name:
-    library}} for the kinds "bwd" (max_agg.cu), "gather" (slot_gather.cu),
-    "wsum" (weighted_sum.cu), and "rev", "fwd", "gbwd" and "rows"
-    (fused_gat.cu, whose gat_rev, gat_fwd and gat_bwd chunk lines, its
-    kMaxRows line and the forward's kFwdMinBlocks line are swept in turn);
-    only the last four when `gat_only`."""
+    library}} for the kinds "sum" (sum_agg.cu) and "max" (max_agg.cu's
+    forward), whose kAggChunk and kAggMinBlocks lines are swept as pairs,
+    "bwd" (max_agg.cu's backward), "gather" (slot_gather.cu), "wsum"
+    (weighted_sum.cu), and "rev", "fwd", "gbwd" and "rows" (fused_gat.cu,
+    whose gat_rev, gat_fwd and gat_bwd chunk lines, its kMaxRows line and
+    the forward's kFwdMinBlocks line are swept in turn); only the last four
+    when `only` is "gat", only the first two when it is "agg"."""
     def read(path):
         with open(path) as f:
             return f.read()
@@ -136,20 +159,43 @@ def build_all(against: list[str], gat_only: bool) -> dict:
         return {(kind, f"{name}={c}"): (f"{stem}_{name}{i}", line.sub(
             f"constexpr int {name} = {c};", source)) for i, c in enumerate(chunks)}
 
-    jobs = {**chunked("rev", "fused_gat", fused_gat._SOURCE, COMBINE_CHUNKS),
+    def agg_pairs(kind, stem, path):
+        source = read(path)
+        for line in (AGG_CHUNK_LINE, AGG_MIN_BLOCKS_LINE):
+            if len(line.findall(source)) != 1:
+                raise SystemExit(f"expected one {line.pattern} line in {path}")
+        out = {(kind, "this"): (f"{stem}_this", source)}
+        for i, c in enumerate(AGG_CHUNKS):
+            for j, m in enumerate(AGG_MIN_BLOCKS):
+                out[(kind, f"kAggChunk={c} kAggMinBlocks={m}")] = (
+                    f"{stem}_agg{i}{j}", AGG_MIN_BLOCKS_LINE.sub(
+                        f"constexpr int kAggMinBlocks = {m};", AGG_CHUNK_LINE.sub(
+                            f"constexpr int kAggChunk = {c};", source)))
+        return out
+
+    jobs = {}
+    if only != "agg":
+        jobs.update({
+            **chunked("rev", "fused_gat", fused_gat._SOURCE, COMBINE_CHUNKS),
             **chunked("fwd", "fused_gat", fused_gat._SOURCE, FWD_CHUNKS, FWD_CHUNK_LINE),
             **chunked("gbwd", "fused_gat", fused_gat._SOURCE, BWD_CHUNKS, BWD_CHUNK_LINE),
             **chunked("rows", "fused_gat", fused_gat._SOURCE, MAX_ROWS, MAX_ROWS_LINE),
-            **chunked("fwd", "fused_gat", fused_gat._SOURCE, MIN_BLOCKS, MIN_BLOCKS_LINE)}
-    if not gat_only:
+            **chunked("fwd", "fused_gat", fused_gat._SOURCE, MIN_BLOCKS, MIN_BLOCKS_LINE)})
+    if only != "gat":
+        jobs.update({**agg_pairs("sum", "sum_agg", sum_agg._SOURCE),
+                     **agg_pairs("max", "max_agg", max_agg._SOURCE)})
+    if only is None:
         jobs.update({**chunked("bwd", "max_agg", max_agg._SOURCE, CHUNKS),
                      **chunked("wsum", "weighted_sum", weighted_sum._SOURCE,
                                COMBINE_CHUNKS),
                      ("gather", "this"): ("slot_gather_this", read(slot_gather._SOURCE))})
-    stems = (("rev", "fused_gat"),) if gat_only else (
-        ("bwd", "max_agg"), ("gather", "slot_gather"), ("wsum", "weighted_sum"),
-        ("rev", "fused_gat"))
-    names = ["against"] + [f"against:{d}" for d in against[1:]]
+    # one build of the other checkout's max_agg.cu serves the forward and
+    # the backward, one of its fused_gat.cu the three GAT kernels
+    stems = {"gat": (("rev", "fused_gat"),),
+             "agg": (("sum", "sum_agg"), ("max", "max_agg"))}.get(only, (
+        ("sum", "sum_agg"), ("max", "max_agg"), ("gather", "slot_gather"),
+        ("wsum", "weighted_sum"), ("rev", "fused_gat")))
+    names = [f"against:{d}" if i else "against" for i, d in enumerate(against)]
     for i, (name, other) in enumerate(zip(names, against)):
         for kind, stem in stems:
             jobs[(kind, name)] = (f"{stem}_against{i}",
@@ -160,12 +206,15 @@ def build_all(against: list[str], gat_only: bool) -> dict:
     out = {}
     for (kind, name), lib in libs.items():
         out.setdefault(kind, {})[name] = lib
-    # the kMaxRows builds time the forward and the backward; one build of
-    # the other checkout's fused_gat.cu serves all three kernels
-    for kind in ("fwd", "gbwd"):
-        out[kind].update(out["rows"])
+    if only is None:
         for name in names:
-            out[kind][name] = libs[("rev", name)]
+            out["bwd"][name] = libs[("max", name)]
+    # the kMaxRows builds time the forward and the backward
+    if only != "agg":
+        for kind in ("fwd", "gbwd"):
+            out[kind].update(out["rows"])
+            for name in names:
+                out[kind][name] = libs[("rev", name)]
     return out
 
 
@@ -189,6 +238,52 @@ def device_kernels(fn) -> list:
         fn()
         torch.cuda.synchronize()
     return [(e.key[:70], round(cs._device_us(e), 2)) for e in cs.device_events(prof)]
+
+
+def time_agg(libs, tname, nbr, mask, gen) -> None:
+    """sum_agg (sum and mean) and max_agg (winner slot stored, and the
+    serve variant) at F=20 and 256, f32 and bf16: every build of each, held
+    bitwise to the plain version, then timed."""
+    dev = nbr.device
+    B, N, D = nbr.shape
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        for F in (cs.IN_FEATS, cs.TRAIN_WIDTHS[0]):
+            h = torch.relu(torch.randn((B, N, F), generator=gen, device=dev)).to(dtype)
+            ptrs = (h.data_ptr(), nbr.data_ptr(), mask.data_ptr())
+            cases = {}
+            for mean in (False, True):
+                cases["sum_agg_mean" if mean else "sum_agg"] = (
+                    "sum", (sum_agg.sum_aggregate_plain(h, nbr, mask, mean),),
+                    lambda lib, o, mean=mean: (
+                        lib.gts_sum_agg_f32 if f32 else lib.gts_sum_agg_bf16)(
+                        *ptrs, o[0].data_ptr(), B, N, D, F, int(mean),
+                        torch.cuda.current_stream().cuda_stream))
+            want = max_agg.max_aggregate_plain(h, nbr, mask)
+            for store in (True, False):
+                cases["max_agg" if store else "max_agg_serve"] = (
+                    "max", want if store else want[:1],
+                    lambda lib, o, store=store: (
+                        lib.gts_max_agg_f32 if f32 else lib.gts_max_agg_bf16)(
+                        *ptrs, o[0].data_ptr(), o[1].data_ptr() if store else None,
+                        B, N, D, F, int(store), torch.cuda.current_stream().cuda_stream))
+            for kname, (kind, want, call) in cases.items():
+                times = {}
+                for name, lib in libs[kind].items():
+                    def run(lib=lib, name=name):
+                        o = tuple(torch.empty_like(t) for t in want)
+                        if call(lib, o) != 0:
+                            raise RuntimeError(f"{kname} {name}: launch failed")
+                        return o
+                    if not all(torch.equal(cs._bits(a) if a.is_floating_point() else a,
+                                           cs._bits(b) if b.is_floating_point() else b)
+                               for a, b in zip(run(), want)):
+                        raise SystemExit(f"{kname} {name} differs from the plain version "
+                                         f"({tname} {dtype} F={F})")
+                    times[name] = cs.time_device(run)
+                print(f"[{kname}] {tname} {str(dtype)[6:]} F={F}: " + ", ".join(
+                    f"{k} {t:.5f} ms" for k, t in times.items()), flush=True)
+            del h, cases, want
 
 
 def time_combines(libs, tname, nbr, mask, rslot, gen) -> None:
@@ -339,21 +434,28 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--against", action="append", default=[],
                         help="a checkout whose kernel sources to time too (repeatable)")
-    parser.add_argument("--gat", action="store_true",
-                        help="time the three fused GAT kernels alone")
+    only = parser.add_mutually_exclusive_group()
+    only.add_argument("--gat", action="store_const", dest="only", const="gat",
+                      help="time the three fused GAT kernels alone")
+    only.add_argument("--agg", action="store_const", dest="only", const="agg",
+                      help="time sum_agg and max_agg alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device is available; nothing was run", file=sys.stderr)
         return 1
     print(cs.card_line(), flush=True)
-    libs = build_all(args.against, args.gat)
+    libs = build_all(args.against, args.only)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     for tname, arrays in tables().items():
         nbr, mask, rslot = (torch.from_numpy(a).to(dev) for a in arrays)
+        if args.only != "gat":
+            time_agg(libs, tname, nbr, mask, gen)
+        if args.only == "agg":
+            continue
         time_gat(libs, tname, nbr, mask)
         time_combines(libs, tname, nbr, mask, rslot, gen)
-        if args.gat:
+        if args.only == "gat":
             continue
         bwd, gather = libs["bwd"], libs["gather"]
         B, N, D = nbr.shape

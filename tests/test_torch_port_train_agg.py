@@ -10,9 +10,11 @@ Tolerances:
     `tiled_aggregate`, which is also their VJP): rtol/atol 1e-4; their
     exact mode carries each gathered value as two bf16 halves (~2**-16
     relative), as tests/test_pallas_agg.py allows.
-Inputs: symmetric, deduplicated tables with zero-degree rows, D=12 and 16;
-max runs on values in quarter steps, so neighbours tie often and every
-value is exact in bf16 (the Pallas kernel then picks the same winners).
+Inputs: symmetric, deduplicated tables with zero-degree rows, D=12 and 16,
+and one with holes (real slots after padded ones, which the CLI's tables
+never have but the semantics allow); max runs on values in quarter steps,
+so neighbours tie often and every value is exact in bf16 (the Pallas
+kernel then picks the same winners).
 The kernels themselves are held bitwise to these plain versions on the card
 (chip_smoke.py).
 """
@@ -24,11 +26,14 @@ import pytest
 import torch
 
 from gnn_tumor_seg_tpu.ops.aggregate import aggregate_neighbors as jax_aggregate
+from gnn_tumor_seg_tpu.ops.aggregate import gather_neighbors
 from gnn_tumor_seg_tpu.ops.pallas.tiling import build_tiled_aux
 from gnn_tumor_seg_tpu_torch.ops.aggregate import aggregate_neighbors
 from gnn_tumor_seg_tpu_torch.ops.graph import ell_from_edges, reciprocal_slots
+from gnn_tumor_seg_tpu_torch.ops.kernels import max_agg, sum_agg
 from gnn_tumor_seg_tpu_torch.ops.kernels.max_agg import (
-    max_aggregate_backward, max_aggregate_backward_plain, max_aggregate_plain)
+    max_aggregate, max_aggregate_backward, max_aggregate_backward_plain,
+    max_aggregate_plain)
 from gnn_tumor_seg_tpu_torch.ops.kernels.sum_agg import (sum_aggregate,
                                                          sum_aggregate_plain)
 
@@ -61,6 +66,20 @@ def _tables(seed, D):
     return nbr, mask, reciprocal_slots(nbr, mask)
 
 
+def _holed_tables(seed, D, frac=0.2):
+    """_tables with both ends of a fraction of the edges masked off: rows
+    then have real slots after padded ones, padded slots keep their
+    neighbour ids, and the table stays symmetric."""
+    nbr, mask, rslot = _tables(seed, D)
+    rng = np.random.default_rng(seed + 1000)
+    b, v, d = np.nonzero((mask > 0) & (rng.random(mask.shape) < frac))
+    mask = mask.copy()
+    mask[b, v, d] = 0
+    mask[b, nbr[b, v, d], rslot[b, v, d]] = 0
+    assert ((mask[..., 1:] > 0) & (mask[..., :-1] == 0)).any()
+    return nbr, mask, reciprocal_slots(nbr, mask)
+
+
 def _jax_vjp(h, gout, nbr, mask, op, impl, aux=None):
     out, vjp = jax.vjp(lambda x: jax_aggregate(
         x, jnp.asarray(nbr), jnp.asarray(mask), op, impl=impl, tiled=aux),
@@ -76,8 +95,8 @@ def _port_vjp(h, gout, nbr, mask, rslot, op):
     return out.detach().numpy(), x.grad.numpy()
 
 
-def _check_against_jax(op, D, F):
-    nbr, mask, rslot = _tables(D, D)
+def _check_against_jax(op, D, F, holes=False):
+    nbr, mask, rslot = (_holed_tables if holes else _tables)(D, D)
     rng = np.random.default_rng(100 + D)
     h = rng.normal(size=(B, N, F)).astype(np.float32)
     if op == "max":
@@ -109,12 +128,64 @@ def test_forward_and_vjp_match_jax_dense_and_pallas(op, D):
 
 
 @pytest.mark.parametrize("D", [12, 16])
-@pytest.mark.parametrize("width", [3, 20, 36])
-def test_max_vjp_matches_jax_at_kernel_vector_widths(width, D):
-    """The max forward and backward at the widths that give the backward
-    kernel vectors of 1 (F=3) and 4 (F=20, the first GSpool layer; F=36,
-    no multiple of 8), against the same JAX references and tolerances."""
-    _check_against_jax("max", D, width)
+@pytest.mark.parametrize("op,width", [
+    pytest.param(op, width, id=f"{op}-{width}" if op != "max" else str(width))
+    for op in ("max", "sum", "mean") for width in (3, 20, 36)])
+def test_max_vjp_matches_jax_at_kernel_vector_widths(op, width, D):
+    """The max forward and backward, and sum and mean (their forward is
+    also their backward), at the widths that give the kernels vectors of 1
+    (F=3) and 4 (F=20, the first GSpool layer; F=36, no multiple of 8),
+    against the same JAX references and tolerances."""
+    _check_against_jax(op, D, width)
+
+
+@pytest.mark.parametrize("op", ["max", "sum", "mean"])
+def test_vjp_matches_jax_on_a_table_with_holes(op):
+    """On a table with real slots after padded ones, forward and backward
+    against the same JAX references and tolerances; for max, the winner
+    slot is also the JAX dense path's first winner (an original slot d, not
+    a position among the real slots)."""
+    _check_against_jax(op, 12, F, holes=True)
+    if op == "max":
+        nbr, mask, _ = _holed_tables(12, 12)
+        h = (np.random.default_rng(5).integers(-6, 6, size=(B, N, F)) / 4.0
+             ).astype(np.float32)
+        g = jnp.where(jnp.asarray(mask)[..., None] > 0,
+                      gather_neighbors(jnp.asarray(h), jnp.asarray(nbr)), -1e30)
+        _, arg = max_aggregate_plain(torch.from_numpy(h), torch.from_numpy(nbr),
+                                     torch.from_numpy(mask))
+        want = np.asarray(jnp.argmax(g, axis=2))
+        assert np.array_equal(arg.numpy(), want)
+        # some winner sits after a hole, where its slot and its position
+        # among the real slots differ
+        pos = np.cumsum(mask > 0, axis=2) - 1
+        won_pos = np.take_along_axis(pos, want.astype(np.int64), axis=2)
+        assert ((won_pos != want) & (mask.sum(2, keepdims=True) > 0)).any()
+
+
+@pytest.mark.parametrize("op", ["max", "max_bwd", "sum", "mean"])
+def test_kernels_refuse_graphs_past_32_bit_offsets(op, monkeypatch):
+    """The kernels index a graph's rows with 32-bit integers: at N*F >=
+    2**31 the wrappers raise ValueError before they build anything (meta
+    tensors: no memory, no card)."""
+    def no_build():
+        raise AssertionError("a kernel library was built")
+
+    monkeypatch.setattr(max_agg, "build", no_build)
+    monkeypatch.setattr(sum_agg, "build", no_build)
+    n = 2 ** 23
+    h = torch.empty(1, n, 256, device="meta")
+    nbr = torch.empty(1, n, 12, dtype=torch.int32, device="meta")
+    mask = torch.empty(1, n, 12, device="meta")
+    with pytest.raises(ValueError, match=r"N\*F = 2147483648 >= 2\*\*31"):
+        if op == "max":
+            max_aggregate(h, nbr, mask)
+        elif op == "max_bwd":
+            max_aggregate_backward(h, torch.empty(h.shape, dtype=torch.uint8,
+                                                  device="meta"), nbr, mask,
+                                   torch.empty_like(nbr))
+        else:
+            sum_aggregate(h, nbr, mask, op == "mean")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
