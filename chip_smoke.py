@@ -15,8 +15,8 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    (nvcc, sm_90a) and the native host library (g++), all from the sources in
    this checkout, one compiler process each, in parallel; ptxas' registers
    and spills of sum_agg_kernel, max_agg_kernel, wsum_kernel,
-   gat_fwd_kernel, gat_bwd_kernel and gat_rev_kernel are logged, and a
-   spill fails the run;
+   gat_fwd_kernel, gat_bwd_kernel, gat_rev_kernel, pairdot_kernel and
+   slot_gather_bwd_kernel are logged, and a spill fails the run;
 3. kernel check: max_agg against its plain PyTorch version on the card at
    random tables of the node bucket 8192 (B=1, D=12/16, F=20/256, f32 and
    bf16, with and without the winner-slot store) and at edge cases; then,
@@ -41,9 +41,12 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    symmetric and nonzero on padded slots: wsum and wsum_bwd at (H,F) =
    (1,20), (1,256), (4,256), (3,256), (1,4) and, for every vector width,
    (1,3), (2,6), (1,36), (1,515) bitwise, pairdot within
-   PAIRDOT_TOL, slot_gather and slot_gather_bwd at W = 1, 2, 3, 4, 5, 12,
-   48 bitwise, every backward deterministic, and an edge case at D=128 (f32
-   and bf16); and a small GAT with attention dropout must train on the card;
+   PAIRDOT_TOL with +0.0 on padded slots (also with a and c one element off
+   alignment at (4,256)), slot_gather and slot_gather_bwd at W = 1, 2, 3,
+   4, 5, 12, 48 bitwise, every backward deterministic, pairdot and
+   slot_gather_bwd again on a table with holes, and edge cases at D=128
+   and D=7 (f32 and bf16); and a small GAT with attention dropout must
+   train on the card;
 4. serve: one 240x240x155 synthetic brain written as NIfTI, GSpool [256]*6 and
    CNN 8->16->4 checkpoints from seeded weights in the JAX package's format,
    three requests through cli.predict_single.predict_single_mri under "exact"
@@ -253,11 +256,13 @@ def phase_build() -> None:
                 for line in out.strip().splitlines():
                     log(f"[build]   {line}")
             if name.startswith(("weighted_sum.cu", "fused_gat.cu", "sum_agg.cu",
-                                "max_agg.cu")):
+                                "max_agg.cu", "slot_gather.cu")):
                 for kern, regs, stores, loads in ptxas_kernels(out):
                     if any(k in kern for k in ("wsum_kernel", "gat_fwd_kernel",
                                                "gat_bwd_kernel", "gat_rev_kernel",
-                                               "sum_agg_kernel", "max_agg_kernel")):
+                                               "sum_agg_kernel", "max_agg_kernel",
+                                               "pairdot_kernel",
+                                               "slot_gather_bwd_kernel")):
                         log(f"[build] {kern}: {regs} registers, spill stores "
                             f"{stores} B, spill loads {loads} B")
                         check(stores == loads == 0, f"{kern} spills registers")
@@ -699,11 +704,13 @@ def phase_decomposed_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
     real, D=12/16, f32 and bf16), on random symmetric tables with isolated
     rows and with weights that are not symmetric and nonzero on padded slots:
     wsum and wsum_bwd at DECOMPOSED_SHAPES and VECTOR_SHAPES bitwise, pairdot
-    within PAIRDOT_TOL of the largest value, slot_gather and slot_gather_bwd
-    at SLOT_WIDTHS bitwise; two runs each of wsum, wsum_bwd, pairdot and
-    slot_gather_bwd bitwise equal; then an edge case at D=128 (f32 and
-    bf16). Returns the largest difference per kernel, relative
-    ("rel") and absolute ("abs")."""
+    within PAIRDOT_TOL of the largest value and +0.0 on padded slots (also
+    with a and c one element off alignment at (4,256)), slot_gather and
+    slot_gather_bwd at SLOT_WIDTHS bitwise; two runs each of wsum, wsum_bwd,
+    pairdot and slot_gather_bwd bitwise equal; pairdot and slot_gather_bwd
+    again on the D=12 table with holes (punch_holes); then edge cases at
+    D=128 and D=7 (f32 and bf16). Returns the largest difference per
+    kernel, relative ("rel") and absolute ("abs")."""
     from gnn_tumor_seg_tpu_torch.ops.kernels.slot_gather import (
         slot_gather, slot_gather_backward, slot_gather_backward_plain,
         slot_gather_plain)
@@ -728,63 +735,85 @@ def phase_decomposed_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
         check(again is None or torch.equal(_bits(got), _bits(again)),
               f"{kernel} is not deterministic ({tag})")
 
-    def run_case(B, N, D, n_real, shapes, widths, dtypes):
+    def check_pairdot(a, c, nbr, mask, tag):
+        got = pairdot(a, c, nbr, mask)
+        want = pairdot_plain(a, c, nbr, mask)
+        err = within(got, want)
+        worst["pairdot"] = max(worst["pairdot"], err)
+        worst_abs["pairdot"] = max(worst_abs["pairdot"], (got - want).abs().max().item())
+        check(err <= PAIRDOT_TOL, f"pairdot differs from its plain version ({tag}): "
+              f"{err:.3g} of the largest value")
+        check(torch.equal(got, pairdot(a, c, nbr, mask)),
+              f"pairdot is not deterministic ({tag})")
+        check(bool((_bits(got[mask == 0]) == 0).all()),
+              f"pairdot is not +0.0 on a padded slot ({tag})")
+
+    def run_case(B, N, D, n_real, shapes, widths, dtypes, holes=False):
+        """holes: the table with real slots after padded ones (punch_holes),
+        for pairdot and slot_gather_bwd alone"""
         nbr_np, mask_np, rslot_np = symmetric_tables(rng, B, N, D, n_real=n_real)
+        if holes:
+            mask_np = punch_holes(rng, nbr_np, mask_np, rslot_np)
         nbr, mask, rslot = (torch.from_numpy(a).to(dev)
                             for a in (nbr_np, mask_np, rslot_np))
+        table = "holed " if holes else ""
         for H, F in shapes:
             w = t(rng.normal(size=(B, N, D, H)))     # padded slots too
             v32 = rng.normal(size=(B, N, H, F))
             g32 = rng.normal(size=(B, N, H, F))
             for dtype in dtypes:
-                tag = f"B={B} N={N} D={D} H={H} F={F} {str(dtype)[6:]}"
+                tag = f"{table}B={B} N={N} D={D} H={H} F={F} {str(dtype)[6:]}"
                 values, gout = t(v32, dtype), t(g32, dtype)
-                same("wsum", weighted_sum(values, w, nbr, mask),
-                     weighted_sum_plain(values, w, nbr, mask),
-                     weighted_sum(values, w, nbr, mask), tag)
-                same("wsum_bwd", weighted_sum_reverse(gout, w, nbr, mask, rslot),
-                     weighted_sum_reverse_plain(gout, w, nbr, mask, rslot),
-                     weighted_sum_reverse(gout, w, nbr, mask, rslot), tag)
-                got = pairdot(gout, values, nbr, mask)
-                want = pairdot_plain(gout, values, nbr, mask)
-                err = within(got, want)
-                worst["pairdot"] = max(worst["pairdot"], err)
-                worst_abs["pairdot"] = max(worst_abs["pairdot"], (
-                    got - want).abs().max().item())
-                check(err <= PAIRDOT_TOL, f"pairdot differs from its plain "
-                      f"version ({tag}): {err:.3g} of the largest value")
-                check(torch.equal(got, pairdot(gout, values, nbr, mask)),
-                      f"pairdot is not deterministic ({tag})")
-                check(not got[mask == 0].any(), f"pairdot nonzero on a padded "
-                      f"slot ({tag})")
+                if not holes:
+                    same("wsum", weighted_sum(values, w, nbr, mask),
+                         weighted_sum_plain(values, w, nbr, mask),
+                         weighted_sum(values, w, nbr, mask), tag)
+                    same("wsum_bwd", weighted_sum_reverse(gout, w, nbr, mask, rslot),
+                         weighted_sum_reverse_plain(gout, w, nbr, mask, rslot),
+                         weighted_sum_reverse(gout, w, nbr, mask, rslot), tag)
+                check_pairdot(gout, values, nbr, mask, tag)
+                done = "pairdot within"
+                if (H, F) == (4, 256):
+                    # a and c one element off alignment: vectors of 1
+                    check_pairdot(misaligned(gout), misaligned(values), nbr, mask,
+                                  tag + " a/c misaligned")
+                    done = "pairdot (a/c also misaligned) within"
                 if dev.type == "cuda":
                     torch.cuda.synchronize()
-                log(f"[kernel] {tag}: wsum and wsum_bwd bitwise, pairdot within "
-                    f"{PAIRDOT_TOL}, backward kernels deterministic")
+                log(f"[kernel] {tag}: "
+                    + ("" if holes else "wsum and wsum_bwd bitwise, ")
+                    + f"{done} {PAIRDOT_TOL} and +0.0 on padded slots, "
+                    f"kernels deterministic")
         for W in widths:
             x32 = rng.normal(size=(B, N, W))
             g32 = rng.normal(size=(B, N, D, W))
             for dtype in dtypes:
-                tag = f"B={B} N={N} D={D} W={W} {str(dtype)[6:]}"
+                tag = f"{table}B={B} N={N} D={D} W={W} {str(dtype)[6:]}"
                 x, gout = t(x32, dtype), t(g32, dtype)
-                same("slot_gather", slot_gather(x, nbr, mask),
-                     slot_gather_plain(x, nbr, mask), None, tag)
+                if not holes:
+                    same("slot_gather", slot_gather(x, nbr, mask),
+                         slot_gather_plain(x, nbr, mask), None, tag)
                 same("slot_gather_bwd",
                      slot_gather_backward(gout, nbr, mask, rslot),
                      slot_gather_backward_plain(gout, nbr, mask, rslot),
                      slot_gather_backward(gout, nbr, mask, rslot), tag)
             if dev.type == "cuda":
                 torch.cuda.synchronize()
-            log(f"[kernel] B={B} N={N} D={D} W={W}: slot_gather and "
-                f"slot_gather_bwd bitwise (f32, bf16), backward deterministic")
+            log(f"[kernel] {table}B={B} N={N} D={D} W={W}: "
+                + ("" if holes else "slot_gather and ")
+                + "slot_gather_bwd bitwise (f32, bf16), backward deterministic")
 
     both = (torch.float32, torch.bfloat16)
     for D in (12, 16):
         run_case(B, N, D, n_real, DECOMPOSED_SHAPES + VECTOR_SHAPES, SLOT_WIDTHS,
                  both)
+    run_case(B, N, 12, n_real, DECOMPOSED_SHAPES + VECTOR_SHAPES, SLOT_WIDTHS,
+             both, holes=True)
     # the largest degree bucket, 6 heads, F=2, N not a multiple of any
-    # block's rows
+    # block's rows; and a degree no bucket has (D=7: the slot gather's
+    # backward reads its table one entry at a time)
     run_case(2, 777, 128, 700, [(6, 2)], [5], both)
+    run_case(2, 777, 7, 700, [(2, 6), (4, 256)], [1, 3, 4, 5], both)
     log(f"[kernel] decomposed kernels against plain, largest difference "
         f"relative to the largest value: {worst}; absolute: {worst_abs}")
     return {"rel": worst, "abs": worst_abs}

@@ -28,9 +28,10 @@
 // Arithmetic is float32 in both types. The combines (1, 2) add explicitly
 // rounded products in slot order (__fmul_rn, __fadd_rn, which nvcc never
 // contracts into an FMA), so they are bitwise equal to their plain PyTorch
-// versions (ops/kernels/weighted_sum.py). The pair dot sums over F in lanes
-// and a shuffle tree, another order than the plain version's sum. No kernel
-// uses atomics: every result is the same run to run.
+// versions (ops/kernels/weighted_sum.py). The pair dot sums over F in FMAs
+// over each lane's vectors and then across lanes with xor shuffles, another
+// order than the plain version's sum. No kernel uses atomics: every result
+// is the same run to run.
 //
 // What bounds them on an H100: bytes. Per (row, slot, feature) each does one
 // multiply and one add; the traffic is the referenced rows of values (or
@@ -41,40 +42,63 @@
 // A neighbour row is re-read for each of its D slots and comes from L2 only
 // when the rows of a neighbourhood lie close together (they do for
 // supervoxel graphs, whose node ids follow space): at about ten real slots
-// a row, those re-reads are ~1.7 GB from L2 at HF=1024, so a good combine
+// a row, those re-reads are ~1.7 GB from L2 at HF=1024, so a good kernel
 // sits at 2-3x the byte bound, not at 1x.
 //
-// Combine design (the layout of max_agg.cu's backward). The TPU kernels'
-// weighted one-hot histograms on the MXU over a compacted unique-row block,
-// carried as bf16 hi/lo halves (weighted_sum.py:8-15, 95-110), work around
-// slow row gathers on the TPU; here the kernel reads nbr directly.
-//  * Each thread owns an aligned vector of VEC contiguous features inside
-//    one head (VEC = 8, 4, 2 or 1, the widest that divides F and keeps a
-//    load at 16 bytes: float32 at most 4, bfloat16 at most 8), read and
-//    written as one vector.
-//  * Threads map flat onto (row, vector): at HF=4 in float32 one thread is a
-//    row, at HF=256 a row takes 64 threads and a block of 256 four rows. A
-//    row of more than 256 vectors (F=515) takes a third grid dimension over
-//    feature runs. Graphs are the slower grid dimension (blockIdx.y), so a
-//    wave gathers from the rows of about one graph, which stay in L2.
-//  * Staging, one round trip: the block loads mask, nbr and (reverse) rslot
+// All three read nbr directly. The TPU kernels' weighted one-hot histograms
+// on the MXU over a compacted unique-row block, carried as bf16 hi/lo
+// halves (weighted_sum.py:8-15, 95-110), work around slow row gathers on
+// the TPU. Shared by all three:
+//  * each thread owns aligned vectors of VEC contiguous features inside one
+//    head (VEC = 8, 4, 2 or 1, the widest that divides F, keeps a load at 16
+//    bytes, float32 at most 4 and bfloat16 at most 8, and to which the
+//    feature pointers are aligned), read and written as one vector;
+//  * graphs are the slower grid dimension (blockIdx.y), so a wave gathers
+//    from the rows of about one graph, which stay in L2;
+//  * staging, one round trip: the block loads mask, nbr and (reverse) rslot
 //    of all its rows' slots at once (several entries a thread in flight),
 //    then compacts each row's real slots in slot order in shared memory
-//    with warp ballots and keeps their number. The feature loop runs over
-//    the real slots alone and never tests a padded one.
-//  * Each slot's weight is read in the feature loop beside the slot's
-//    vector: both depend on the staged (source, slot) pair alone, so the
-//    reverse weight w[v, rslot] costs no second dependent round trip before
-//    the loop, and no shared memory (the lanes of one head read one
-//    address, one transaction a warp).
-//  * kChunk slots' loads are in flight before their adds. The adds then run
-//    in slot order, one rounding each; skipping a padded slot equals the
-//    plain version's add of +0.0 (a float32 sum from +0.0 never becomes
-//    -0.0), so the result stays bitwise the plain version's.
-// The pair dot gives a group of G lanes (a power of two from 4 to 32) one
-// (row, head): the lanes stride over F for each slot's dot and reduce with
-// xor shuffles inside the group. Left for later: the pair dot's vector
-// loads, cp.async or TMA staging, persistent blocks.
+//    with warp ballots and keeps their number (stage_slots). Loops over
+//    slots run over the real slots alone and never test a padded one;
+//  * a chunk of slots' loads is in flight before their arithmetic; the
+//    chunk and the launch bound are tuned together for registers, since
+//    blocks resident on an SM decide (scripts/torch_port_kernel_variants.py).
+//
+// Combine (the layout of max_agg.cu's backward): threads map flat onto
+// (row, vector): at HF=4 in float32 one thread is a row, at HF=256 a row
+// takes 64 threads and a block of 256 four rows. A row of more than 256
+// vectors (F=515) takes a third grid dimension over feature runs. Each
+// slot's weight is read in the feature loop beside the slot's vector: both
+// depend on the staged (source, slot) pair alone, so the reverse weight
+// w[v, rslot] costs no second dependent round trip before the loop, and no
+// shared memory (the lanes of one head read one address, one transaction a
+// warp). kChunk slots' loads are in flight before their adds. The adds then
+// run in slot order, one rounding each; skipping a padded slot equals the
+// plain version's add of +0.0 (a float32 sum from +0.0 never becomes -0.0),
+// so the result stays bitwise the plain version's.
+//
+// Pair dot (the layout of fused_gat.cu's backward, whose d_alpha is the
+// same dot): a group of L lanes owns one (row, head), L the head's vectors
+// rounded up to a power of two, at most 32 and at most 256 / H, each lane
+// holding one or two vectors of a (two once a head has kPdTwoAt vectors:
+// (4,256) is 32 lanes of two vectors of 4 in float32 and 16 lanes of two
+// vectors of 8 in bfloat16, (1,20) 8 lanes of which 3 idle, (1,4) one lane
+// that needs no shuffle). The groups of a row
+// are adjacent, threads run flat over (row, head, lane) in blocks of whole
+// warps, at most kPdMaxRows rows a block. a is loaded once per row into
+// registers. For each chunk of kPdChunk real slots the lanes load the c
+// vectors, dot them with a, and reduce the chunk's dots across the L lanes
+// together with xor shuffles: each exchange halves the values a lane
+// holds, so a chunk costs kPdChunk - 1 + log2(L / kPdChunk) shuffles, not
+// kPdChunk * log2(L) as one slot at a time. The lane left holding a slot's dot
+// writes it at the slot's position among the block's scores in shared
+// memory, which start at +0.0, so padded slots stay +0.0; the block then
+// writes its rows' D*H scores as one contiguous, coalesced run. What holds
+// it above the byte bound is what holds the combines: the D-fold re-reads
+// of c rows from L2 in float32; in bfloat16, whose bytes are half, the
+// per-slot chain of a block (staging, a round trip per chunk) as well.
+// Left for later: cp.async or TMA staging, persistent blocks that stage
+// the next rows while the current ones compute.
 
 #include <algorithm>
 #include <cstdint>
@@ -91,11 +115,6 @@ constexpr int kThreads = 256;
 constexpr size_t kSmemBudget = 48 * 1024;
 // table entries (mask, nbr, rslot) a thread loads together while staging
 constexpr int kStageUnroll = 4;
-
-__device__ __forceinline__ float load_as_float(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_as_float(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
-}
 
 // BYTES bytes moved with one aligned access (at most 16)
 template <int BYTES> struct Raw { uint4 w[1]; };
@@ -273,39 +292,135 @@ wsum_kernel(const T* __restrict__ values, const float* __restrict__ weights,
 
 // --------------------------------------------------------------- pair dot
 
-template <typename T>
-__global__ void pairdot_kernel(const T* __restrict__ a, const T* __restrict__ c,
-                               const int32_t* __restrict__ nbr,
-                               const float* __restrict__ mask,
-                               float* __restrict__ scores, int N, int D, int H,
-                               int F, int G) {
-  const int gl = threadIdx.x & (G - 1);           // lane within the group
-  const int group = threadIdx.x / G;
-  const int groups = blockDim.x / G;
-  const int b = blockIdx.y;
-  const int64_t pair = (int64_t)blockIdx.x * groups + group;  // (row, head)
-  const bool live = pair < (int64_t)N * H;
-  const int r = live ? (int)(pair / H) : 0;
-  const int h = live ? (int)(pair % H) : 0;
-  const int HF = H * F;
-  const int64_t node = (int64_t)b * N + r;
-  const T* ar = a + node * HF + h * F;
-  const T* cb = c + (int64_t)b * N * HF + h * F;
+// slots whose c vectors a lane loads together, and the launch bound (blocks
+// of 256 threads an SM that the registers must allow: 4, 64 registers). A
+// bound of 6 blocks spills at float32's two vectors of 4
+// (scripts/torch_port_kernel_variants.py --dec)
+constexpr int kPdChunk = 4;
+constexpr int kPdMinBlocks = 4;
+// vectors a head from which a lane holds two: fewer lanes a head, so fewer
+// shuffles and more loads in flight a lane (bfloat16 at F=256, 32 vectors
+// of 8, took 0.65x the time of 32 lanes of one)
+constexpr int kPdTwoAt = 32;
+// rows a pair-dot block takes at most: at (H,F) = (1,4) a thread is a row,
+// and 256 rows a block would leave 192 blocks for 132 SMs
+constexpr int kPdMaxRows = 128;
 
-  // every lane of the warp runs every shuffle: the loop bounds are uniform
-  for (int d = 0; d < D; ++d) {
-    const int64_t off = node * D + d;
-    const bool real = live && mask[off] > 0.f;
-    float part = 0.f;
-    if (real) {
-      const T* cs = cb + (int64_t)nbr[off] * HF;
-      for (int f = gl; f < F; f += G)
-        part = fmaf(load_as_float(ar + f), load_as_float(cs + f), part);
+// One block per (tile of `rows` rows, graph b). Thread t is lane t % L of
+// the group t / L, which owns (row, head) = ((t / L) / H, (t / L) % H);
+// lane l holds a's vectors l, l + L, ... of the head (NV of them a run of
+// L * NV vectors; a head of more vectors goes in runs, each adding its
+// part of every dot in shared memory). Shared memory: the staged slots
+// [rows, Dp] and count [rows], then the block's scores [rows, D*H], +0.0
+// where no real slot writes. Offsets within a graph are 32-bit (N * HF and
+// N * D * H < 2^31).
+template <typename T, int VEC, int NV>
+__global__ void __launch_bounds__(kThreads, kPdMinBlocks)
+pairdot_kernel(const T* __restrict__ a, const T* __restrict__ c,
+               const int32_t* __restrict__ nbr, const float* __restrict__ mask,
+               float* __restrict__ scores, int N, int D, int H, int F, int L,
+               int rows, int Dp) {
+  using Bits = typename BitsOf<T>::type;
+  constexpr int C = kPdChunk;
+  extern __shared__ int2 slots[];                 // [rows, Dp], then count
+  int* count = reinterpret_cast<int*>(slots + rows * Dp);
+  const int DH = D * H;
+  float* sc = reinterpret_cast<float*>(count + rows);   // [rows, DH]
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * rows;
+  for (int i = threadIdx.x; i < rows * DH; i += blockDim.x) sc[i] = 0.f;
+  stage_slots<false>(nbr, mask, nullptr, slots, count, b, row0, rows, N, D, Dp);
+
+  const int HF = H * F;
+  const int vph = F / VEC;                        // vectors a head
+  const int gl = threadIdx.x & (L - 1);
+  const int pair = threadIdx.x / L;
+  const int rl = pair / H;
+  const int h = pair - rl * H;
+  const bool live = rl < rows && row0 + rl < N;
+  const int n = live ? count[rl] : 0;
+  // every lane of a warp runs every shuffle: the loops' bounds are uniform
+  const int nmax = __reduce_max_sync(0xffffffffu, n);
+  const T* ar = a + ((int64_t)b * N + row0 + rl) * HF + h * F;
+  const T* cb = c + (int64_t)b * N * HF + h * F;
+  const int2* rs = slots + rl * Dp;
+  float* sr = sc + rl * DH + h;
+  for (int j0 = 0; j0 < vph; j0 += L * NV) {
+    Pack<Bits, VEC> av[NV];                       // this run's a vectors
+    bool has[NV];
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      const int j = j0 + q * L + gl;
+      has[q] = n > 0 && j < vph;
+      if (has[q]) av[q].raw = load_raw<sizeof(Bits) * VEC>(ar + j * VEC);
     }
-    for (int o = G / 2; o > 0; o >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, o);
-    if (live && gl == 0) scores[off * H + h] = part;
+    for (int k0 = 0; k0 < nmax; k0 += C) {
+      Pack<Bits, VEC> cv[C][NV];
+#pragma unroll
+      for (int s = 0; s < C; ++s) {
+        if (k0 + s < n) {
+          const T* cs = cb + rs[k0 + s].x * HF;
+#pragma unroll
+          for (int q = 0; q < NV; ++q)
+            if (has[q])
+              cv[s][q].raw = load_raw<sizeof(Bits) * VEC>(cs + (j0 + q * L + gl) * VEC);
+        }
+      }
+      float part[C];
+#pragma unroll
+      for (int s = 0; s < C; ++s) {
+        part[s] = 0.f;
+        if (k0 + s < n) {
+#pragma unroll
+          for (int q = 0; q < NV; ++q)
+            if (has[q]) {
+#pragma unroll
+              for (int k = 0; k < VEC; ++k)
+                part[s] = fmaf(bits_to_float(av[q].v[k]),
+                               bits_to_float(cv[s][q].v[k]), part[s]);
+            }
+        }
+      }
+      // across the group's L lanes, each exchange halving the values a lane
+      // holds: afterwards this lane holds the dots of chunk slots first ..
+      // first + held - 1 in part[0 ..], and the lanes whose bits in `rest`
+      // are 0 write them
+      int first = 0, held = C;
+      int o = L >> 1;
+#pragma unroll
+      for (int hs = C / 2; hs >= 1; hs >>= 1) {
+        if (o > 0) {                              // uniform in the warp
+          const bool up = (gl & o) != 0;
+#pragma unroll
+          for (int i = 0; i < hs; ++i) {
+            const float send = up ? part[i] : part[i + hs];
+            const float keep = up ? part[i + hs] : part[i];
+            part[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+          }
+          if (up) first += hs;
+          held = hs;
+          o >>= 1;
+        }
+      }
+      const unsigned rest = o > 0 ? 2u * o - 1u : 0u;
+      for (; o > 0; o >>= 1) part[0] += __shfl_xor_sync(0xffffffffu, part[0], o);
+      if ((gl & rest) == 0) {
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          const int k = k0 + first + i;
+          if (i < held && k < n) {
+            float* p = sr + rs[k].y * H;
+            *p = j0 == 0 ? part[i] : *p + part[i];
+          }
+        }
+      }
+    }
   }
+  __syncthreads();
+  // the block's rows' scores, padded slots +0.0, as one contiguous run
+  const int live_rows = min(rows, N - row0);
+  float* out = scores + ((int64_t)b * N + row0) * DH;
+  for (int i = threadIdx.x; i < live_rows * DH; i += blockDim.x) out[i] = sc[i];
 }
 
 // ---------------------------------------------------------------- launches
@@ -381,6 +496,32 @@ int launch_wsum(const void* values, const void* weights, const void* nbr,
 #undef GTS_WSUM
 }
 
+template <typename T, int VEC, int NV>
+int launch_pairdot_vec(const void* a, const void* c, const void* nbr,
+                       const void* mask, void* scores, int B, int N, int D,
+                       int H, int F, cudaStream_t s) {
+  // lanes per (row, head): a power of two covering the head's vectors, NV a
+  // lane, at most 32 (a warp) and at most 256 / H (a row fits a block)
+  const int vph = F / VEC;
+  int L = 1;
+  while (L < 32 && L * NV < vph && 2 * L * H <= kThreads) L *= 2;
+  const int lanes = H * L;
+  const int Dp = D | 1;   // odd row stride: no bank conflicts between rows
+  const size_t per_row = (size_t)Dp * sizeof(int2) + sizeof(int) +
+                         (size_t)D * H * sizeof(float);
+  // as many rows as fill 256 threads, at most kPdMaxRows, within 48 KB of
+  // shared memory (at least 5 rows at D=128, H=16)
+  const int rows = std::max(1, std::min({kThreads / lanes, kPdMaxRows,
+                                         (int)(kSmemBudget / per_row)}));
+  const int threads = (rows * lanes + 31) / 32 * 32;   // whole warps: shuffles
+  const dim3 grid((N + rows - 1) / rows, B);
+  pairdot_kernel<T, VEC, NV><<<grid, threads, rows * per_row, s>>>(
+      static_cast<const T*>(a), static_cast<const T*>(c),
+      static_cast<const int32_t*>(nbr), static_cast<const float*>(mask),
+      static_cast<float*>(scores), N, D, H, F, L, rows, Dp);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_pairdot(const void* a, const void* c, const void* nbr,
                    const void* mask, void* scores, int B, int N, int D, int H,
@@ -388,17 +529,27 @@ int launch_pairdot(const void* a, const void* c, const void* nbr,
   const int rc = check_dims(B, N, D, H, F);
   if (rc != (int)cudaSuccess) return rc;
   if (B == 0 || N == 0) return (int)cudaSuccess;
-  // lanes per (row, head): a power of two covering F, from 4 to 32
-  int G = 4;
-  while (G < F && G < 32) G *= 2;
-  const int groups = kThreads / G;
-  const int64_t pairs = (int64_t)N * H;
-  const dim3 grid((unsigned)((pairs + groups - 1) / groups), B);
-  pairdot_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<const T*>(c),
-      static_cast<const int32_t*>(nbr), static_cast<const float*>(mask),
-      static_cast<float*>(scores), N, D, H, F, G);
-  return (int)cudaGetLastError();
+  if (B > 65535 || (int64_t)N * H * F >= (1LL << 31) ||
+      (int64_t)N * D * H >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the widest vector of at most 16 bytes that divides F and to which a
+  // and c are aligned; two vectors a lane once a head has kPdTwoAt or more
+  auto fits = [&](int vec) {
+    return F % vec == 0 && aligned(a, vec * (int)sizeof(T)) &&
+           aligned(c, vec * (int)sizeof(T));
+  };
+#define GTS_PAIRDOT(VEC)                                                       \
+  (F / VEC >= kPdTwoAt                                                         \
+       ? launch_pairdot_vec<T, VEC, 2>(a, c, nbr, mask, scores, B, N, D, H, F, s) \
+       : launch_pairdot_vec<T, VEC, 1>(a, c, nbr, mask, scores, B, N, D, H, F, s))
+  if constexpr (sizeof(T) == 2) {
+    if (fits(8)) return GTS_PAIRDOT(8);
+  }
+  if (fits(4)) return GTS_PAIRDOT(4);
+  if (fits(2)) return GTS_PAIRDOT(2);
+  return GTS_PAIRDOT(1);
+#undef GTS_PAIRDOT
 }
 
 }  // namespace

@@ -7,7 +7,9 @@ forward and backward (`_slot_gather_bwd`, :121-133). Both kernels are CUDA
 C++ (csrc/slot_gather.cu), built for sm_90a with nvcc into a shared library
 with a plain C interface at first use and loaded with ctypes, as max_agg.cu
 is; its header says what bounds them (bytes and launch latency) and what
-the design does about that.
+the design does about that (the forward a thread per slot, the backward a
+thread per row holding all its W sums). Both index with 32-bit integers,
+so both wrappers raise ValueError when B*N*D*W reaches 2**31.
 
 `slot_gather` and `slot_gather_backward` launch their kernel on a CUDA
 tensor and take the plain version only for a CPU tensor; on a CUDA tensor
@@ -130,6 +132,9 @@ def slot_gather_backward(gout: torch.Tensor, nbr: torch.Tensor,
         raise ValueError(f"expected gout [B,N,D,W] and nbr [B,N,D]; got "
                          f"{tuple(gout.shape)}, {tuple(nbr.shape)}")
     B, N, D, W = gout.shape
+    if B * N * D * W >= 2 ** 31:
+        raise ValueError(f"slot_gather_bwd indexes gout with 32-bit integers; "
+                         f"B*N*D*W = {B * N * D * W} >= 2**31")
     _check_tensors(gout.device, [(gout, "gout"), (rslot, "rslot")])
     _check_table(gout.view(B, N, D * W), nbr, nbr_mask, "gout")
     _check_like(rslot, nbr.shape, torch.int32, "rslot")

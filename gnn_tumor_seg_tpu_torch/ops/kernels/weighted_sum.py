@@ -9,7 +9,11 @@ Replaces, in gnn_tumor_seg_tpu/ops/pallas/weighted_sum.py,
 All are CUDA C++ (csrc/weighted_sum.cu), built for sm_90a with nvcc into a
 shared library with a plain C interface at first use and loaded with
 ctypes, as max_agg.cu is; its header gives the formulas, what bounds the
-kernels (bytes) and what the design does about that.
+kernels (bytes) and what the design does about that: the combines run
+threads flat over (row, feature vector), the pair dot a group of lanes per
+(row, head) that reduces a chunk of slots' dots with shuffles and writes
+the block's scores as one run. They index a graph with 32-bit integers, so
+`pairdot` raises ValueError when N*H*F or N*D*H reaches 2**31.
 
 Each wrapper launches its kernel on a CUDA tensor and takes its plain
 version (`*_plain`) only for a CPU tensor: on a CUDA tensor it launches the
@@ -196,6 +200,14 @@ def pairdot(a, c, nbr, nbr_mask):
     """As pairdot_plain."""
     if a.device.type == "cpu":
         return pairdot_plain(a, c, nbr, nbr_mask)
+    # before any other check, so a meta tensor of a graph too large is
+    # refused for its size
+    if a.dim() == 4 and nbr.dim() == 3:
+        N, H, F = a.shape[1:]
+        for what, n in (("N*H*F", N * H * F), ("N*D*H", N * nbr.shape[2] * H)):
+            if n >= 2 ** 31:
+                raise ValueError(f"pairdot indexes a graph with 32-bit integers; "
+                                 f"{what} = {n} >= 2**31")
     _check_common(a, nbr, nbr_mask, "a")
     _check_like(c, a.shape, a.dtype, "c")
     _check_tensors(a.device, [(c, "c")])

@@ -5,7 +5,7 @@ NVIDIA H100.
 
 Run from the repository root on a machine with the card:
 
-    python3 scripts/torch_port_kernel_variants.py [--against DIR ...] [--gat | --agg]
+    python3 scripts/torch_port_kernel_variants.py [--against DIR ...] [--gat | --agg | --dec]
 
 sum_agg and max_agg: sum_agg.cu and max_agg.cu with their forward's
 `kAggChunk` line (how many slots' vector loads a thread starts together)
@@ -42,11 +42,27 @@ chip_smoke.GAT_FWD_TOL (bf16 output: one ulp beyond it) with its sign
 mask bitwise, the serve variant bitwise equal to the training one, the
 backward within chip_smoke.GAT_BWD_TOL.
 
---gat times the three GAT kernels alone, --agg sum_agg and max_agg alone.
+The pair dot and the slot gather's backward (--dec, and only there):
+weighted_sum.cu's pairdot with its `kPdChunk` line (slots whose c vectors a
+lane loads together) set to 2 or 4, its `kPdMinBlocks` line (its launch
+bound) set to 1, 4 or 6 and its `kPdTwoAt` line (the vectors a head from
+which a lane holds two) set to 32 or 64, each of the 12 combinations a
+build beside the shipped source, at the main path's (H,F)
+(chip_smoke.DECOMPOSED_SHAPES), held to
+the plain version within chip_smoke.PAIRDOT_TOL with exact zeros on padded
+slots; slot_gather.cu's backward with its `kGradChunk` line (slots a
+thread takes together) set to 4, 8 or 16 and its `kGradThreads` line (its
+block size) set to 64, 128 or 256, each pair a build, at the GAT's head
+counts (W = 1, 3, 4), held bitwise to the plain version; both on both
+tables, float32 and bfloat16.
+
+--gat times the three GAT kernels alone, --agg sum_agg and max_agg alone,
+--dec the pair dot and the slot gather's backward alone.
 --against DIR (repeatable) builds DIR's copies of the five sources (for
 example a `git archive` of another commit; their C interfaces must be
 this checkout's) and times them beside these, named "against" for the
-first DIR and "against:DIR" for the others. Sources are built with nvcc
+first DIR and "against:DIR" for the others (with --dec, DIR's
+weighted_sum.cu and slot_gather.cu alone). Sources are built with nvcc
 for sm_90a into the port's _build/ directory; times are device ms per
 call by CUDA-graph replay (chip_smoke.time_device). Prints the card,
 ptxas' registers and spills per kernel, and one line of times per shape.
@@ -57,6 +73,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import ctypes
+import itertools
 import os
 import re
 import sys
@@ -99,6 +116,18 @@ AGG_CHUNKS = ("2", "4", "8")
 AGG_CHUNK_LINE = re.compile(r"constexpr int kAggChunk = [^;]+;")
 AGG_MIN_BLOCKS = ("1", "4", "6", "8")
 AGG_MIN_BLOCKS_LINE = re.compile(r"constexpr int kAggMinBlocks = [^;]+;")
+# the pair dot's chunk, launch-bound and two-vector lines, swept together,
+# and the slot gather's backward's chunk and block-size lines, as pairs
+PD_CHUNKS = ("2", "4")
+PD_CHUNK_LINE = re.compile(r"constexpr int kPdChunk = [^;]+;")
+PD_MIN_BLOCKS = ("1", "4", "6")
+PD_MIN_BLOCKS_LINE = re.compile(r"constexpr int kPdMinBlocks = [^;]+;")
+PD_TWO_AT = ("32", "64")
+PD_TWO_AT_LINE = re.compile(r"constexpr int kPdTwoAt = [^;]+;")
+GRAD_CHUNKS = ("4", "8", "16")
+GRAD_CHUNK_LINE = re.compile(r"constexpr int kGradChunk = [^;]+;")
+GRAD_THREADS = ("64", "128", "256")
+GRAD_THREADS_LINE = re.compile(r"constexpr int kGradThreads = [^;]+;")
 CSRC = os.path.join("gnn_tumor_seg_tpu_torch", "ops", "kernels", "csrc")
 VP, I32 = ctypes.c_void_p, ctypes.c_int
 
@@ -110,7 +139,8 @@ def build(stem: str, source: str) -> ctypes.CDLL:
         f.write(source)
     lib, log = build_cuda_library(stem, path)
     for kern, regs, stores, loads in cs.ptxas_kernels(log):
-        if any(k in kern for k in ("max_agg", "sum_agg", "slot_gather", "wsum", "gat_")):
+        if any(k in kern for k in ("max_agg", "sum_agg", "slot_gather", "wsum", "gat_",
+                                   "pairdot")):
             print(f"[build] {stem}: {kern}: {regs} registers, spill stores "
                   f"{stores} B, loads {loads} B", flush=True)
     if hasattr(lib, "gts_sum_agg_f32"):
@@ -121,6 +151,9 @@ def build(stem: str, source: str) -> ctypes.CDLL:
             fn.restype = I32
         fns, args = (lib.gts_max_agg_bwd_f32, lib.gts_max_agg_bwd_bf16), [VP] * 6 + [I32] * 4
     elif hasattr(lib, "gts_wsum_f32"):
+        for fn in (lib.gts_pairdot_f32, lib.gts_pairdot_bf16):
+            fn.argtypes = [VP] * 5 + [I32] * 5 + [VP]
+            fn.restype = I32
         fns, args = (lib.gts_wsum_f32, lib.gts_wsum_bf16), [VP] * 6 + [I32] * 6
     elif hasattr(lib, "gts_gat_rev_f32"):
         for fn in (lib.gts_gat_fwd_f32, lib.gts_gat_fwd_bf16):
@@ -131,6 +164,9 @@ def build(stem: str, source: str) -> ctypes.CDLL:
             fn.restype = I32
         fns, args = (lib.gts_gat_rev_f32, lib.gts_gat_rev_bf16), [VP] * 8 + [I32] * 5
     else:
+        for fn in (lib.gts_slot_gather_bwd_f32, lib.gts_slot_gather_bwd_bf16):
+            fn.argtypes = [VP] * 5 + [I32] * 4 + [VP]
+            fn.restype = I32
         fns, args = (lib.gts_slot_gather_f32, lib.gts_slot_gather_bf16), [VP] * 4 + [I32] * 4
     for fn in fns:
         fn.argtypes = args + [VP]
@@ -146,42 +182,55 @@ def build_all(against: list[str], only: str | None) -> dict:
     (weighted_sum.cu), and "rev", "fwd", "gbwd" and "rows" (fused_gat.cu,
     whose gat_rev, gat_fwd and gat_bwd chunk lines, its kMaxRows line and
     the forward's kFwdMinBlocks line are swept in turn); only the last four
-    when `only` is "gat", only the first two when it is "agg"."""
+    when `only` is "gat", only the first two when it is "agg"; when it is
+    "dec", only "pairdot" (weighted_sum.cu, its kPdChunk, kPdMinBlocks and
+    kPdTwoAt lines swept together) and "gather_bwd" (slot_gather.cu, its
+    kGradChunk and kGradThreads lines swept as pairs)."""
     def read(path):
         with open(path) as f:
             return f.read()
 
-    def chunked(kind, stem, path, chunks, line=CHUNK_LINE):
+    def swept(kind, stem, path, lines, this=True):
+        """A build for every combination of the values of `lines` ((pattern,
+        values) pairs) in `path`, and `path` as it is ("this") if `this`."""
         source = read(path)
-        if len(line.findall(source)) != 1:
-            raise SystemExit(f"expected one {line.pattern} line in {path}")
-        name = line.pattern.split()[2]
-        return {(kind, f"{name}={c}"): (f"{stem}_{name}{i}", line.sub(
-            f"constexpr int {name} = {c};", source)) for i, c in enumerate(chunks)}
-
-    def agg_pairs(kind, stem, path):
-        source = read(path)
-        for line in (AGG_CHUNK_LINE, AGG_MIN_BLOCKS_LINE):
+        for line, _ in lines:
             if len(line.findall(source)) != 1:
                 raise SystemExit(f"expected one {line.pattern} line in {path}")
-        out = {(kind, "this"): (f"{stem}_this", source)}
-        for i, c in enumerate(AGG_CHUNKS):
-            for j, m in enumerate(AGG_MIN_BLOCKS):
-                out[(kind, f"kAggChunk={c} kAggMinBlocks={m}")] = (
-                    f"{stem}_agg{i}{j}", AGG_MIN_BLOCKS_LINE.sub(
-                        f"constexpr int kAggMinBlocks = {m};", AGG_CHUNK_LINE.sub(
-                            f"constexpr int kAggChunk = {c};", source)))
+        decls = [line.pattern.split()[1:3] for line, _ in lines]
+        tag = "_".join(name for _, name in decls)
+        out = {(kind, "this"): (f"{stem}_this", source)} if this else {}
+        for i, combo in enumerate(itertools.product(*(v for _, v in lines))):
+            text = source
+            for (line, _), (ctype, name), value in zip(lines, decls, combo):
+                text = line.sub(f"constexpr {ctype} {name} = {value};", text)
+            label = " ".join(f"{name}={value}" for (_, name), value in zip(decls, combo))
+            out[(kind, label)] = (f"{stem}_{tag}{i}", text)
         return out
 
+    def chunked(kind, stem, path, chunks, line=CHUNK_LINE):
+        return swept(kind, stem, path, [(line, chunks)], this=False)
+
+    def agg_pairs(kind, stem, path):
+        return swept(kind, stem, path, [(AGG_CHUNK_LINE, AGG_CHUNKS),
+                                        (AGG_MIN_BLOCKS_LINE, AGG_MIN_BLOCKS)])
+
     jobs = {}
-    if only != "agg":
+    if only == "dec":
+        jobs.update({
+            **swept("pairdot", "weighted_sum", weighted_sum._SOURCE,
+                    [(PD_CHUNK_LINE, PD_CHUNKS), (PD_MIN_BLOCKS_LINE, PD_MIN_BLOCKS),
+                     (PD_TWO_AT_LINE, PD_TWO_AT)]),
+            **swept("gather_bwd", "slot_gather", slot_gather._SOURCE,
+                    [(GRAD_CHUNK_LINE, GRAD_CHUNKS), (GRAD_THREADS_LINE, GRAD_THREADS)])})
+    if only not in ("agg", "dec"):
         jobs.update({
             **chunked("rev", "fused_gat", fused_gat._SOURCE, COMBINE_CHUNKS),
             **chunked("fwd", "fused_gat", fused_gat._SOURCE, FWD_CHUNKS, FWD_CHUNK_LINE),
             **chunked("gbwd", "fused_gat", fused_gat._SOURCE, BWD_CHUNKS, BWD_CHUNK_LINE),
             **chunked("rows", "fused_gat", fused_gat._SOURCE, MAX_ROWS, MAX_ROWS_LINE),
             **chunked("fwd", "fused_gat", fused_gat._SOURCE, MIN_BLOCKS, MIN_BLOCKS_LINE)})
-    if only != "gat":
+    if only not in ("gat", "dec"):
         jobs.update({**agg_pairs("sum", "sum_agg", sum_agg._SOURCE),
                      **agg_pairs("max", "max_agg", max_agg._SOURCE)})
     if only is None:
@@ -192,7 +241,8 @@ def build_all(against: list[str], only: str | None) -> dict:
     # one build of the other checkout's max_agg.cu serves the forward and
     # the backward, one of its fused_gat.cu the three GAT kernels
     stems = {"gat": (("rev", "fused_gat"),),
-             "agg": (("sum", "sum_agg"), ("max", "max_agg"))}.get(only, (
+             "agg": (("sum", "sum_agg"), ("max", "max_agg")),
+             "dec": (("pairdot", "weighted_sum"), ("gather_bwd", "slot_gather"))}.get(only, (
         ("sum", "sum_agg"), ("max", "max_agg"), ("gather", "slot_gather"),
         ("wsum", "weighted_sum"), ("rev", "fused_gat")))
     names = [f"against:{d}" if i else "against" for i, d in enumerate(against)]
@@ -210,7 +260,7 @@ def build_all(against: list[str], only: str | None) -> dict:
         for name in names:
             out["bwd"][name] = libs[("max", name)]
     # the kMaxRows builds time the forward and the backward
-    if only != "agg":
+    if only not in ("agg", "dec"):
         for kind in ("fwd", "gbwd"):
             out[kind].update(out["rows"])
             for name in names:
@@ -421,6 +471,57 @@ def time_gat(libs, tname, nbr, mask) -> None:
             del x, z, gout, want, alpha, pos
 
 
+def time_dec(libs, tname, nbr, mask, rslot, gen) -> None:
+    """pairdot at the main path's (H,F) and slot_gather_bwd at the GAT's
+    head counts, f32 and bf16: every build of each, held to its plain
+    version (pairdot within PAIRDOT_TOL with exact zeros on padded slots,
+    slot_gather_bwd bitwise), then timed."""
+    from gnn_tumor_seg_tpu_torch.ops.kernels.weighted_sum import pairdot_plain
+
+    dev = nbr.device
+    B, N, D = nbr.shape
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        tag = f"{tname} {str(dtype)[6:]}"
+        for H, F in cs.DECOMPOSED_SHAPES:
+            a = torch.randn((B, N, H, F), generator=gen, device=dev).to(dtype)
+            c = torch.randn((B, N, H, F), generator=gen, device=dev).to(dtype)
+            want = pairdot_plain(a, c, nbr, mask)
+            times = {}
+            for name, lib in libs["pairdot"].items():
+                run = launcher(lib.gts_pairdot_f32 if f32 else lib.gts_pairdot_bf16,
+                               lambda o: (a.data_ptr(), c.data_ptr(), nbr.data_ptr(),
+                                          mask.data_ptr(), o.data_ptr(), B, N, D, H, F),
+                               f"pairdot {name}")
+                got = run(torch.empty_like(want))
+                err = cs.within(got, want)
+                if err > cs.PAIRDOT_TOL or got[mask == 0].any():
+                    raise SystemExit(f"pairdot {name} differs from the plain version "
+                                     f"({tag} H={H} F={F}): {err:.3g}")
+                times[name] = cs.time_device(lambda: run(torch.empty_like(want)))
+            print(f"[pairdot] {tag} H={H} F={F}: " + ", ".join(
+                f"{k} {t:.5f} ms" for k, t in times.items()), flush=True)
+            del a, c, want
+        for W in sorted({h for h, _, _, _ in cs.gat_layers()}):
+            g = torch.randn((B, N, D, W), generator=gen, device=dev).to(dtype)
+            want = slot_gather.slot_gather_backward_plain(g, nbr, mask, rslot)
+            times = {}
+            for name, lib in libs["gather_bwd"].items():
+                run = launcher(
+                    lib.gts_slot_gather_bwd_f32 if f32 else lib.gts_slot_gather_bwd_bf16,
+                    lambda o: (g.data_ptr(), nbr.data_ptr(), mask.data_ptr(),
+                               rslot.data_ptr(), o.data_ptr(), B, N, D, W),
+                    f"slot_gather_bwd {name}")
+                if not torch.equal(cs._bits(run(torch.empty_like(want))), cs._bits(want)):
+                    raise SystemExit(f"slot_gather_bwd {name} differs from the plain "
+                                     f"version ({tag} W={W})")
+                times[name] = cs.time_device(lambda: run(torch.empty_like(want)))
+            print(f"[slot_gather_bwd] {tag} W={W}: " + ", ".join(
+                f"{k} {t:.5f} ms" for k, t in times.items()), flush=True)
+            del g, want
+
+
 def launcher(fn, args, name):
     def run(out):
         rc = fn(*args(out), torch.cuda.current_stream().cuda_stream)
@@ -439,6 +540,8 @@ def main() -> int:
                       help="time the three fused GAT kernels alone")
     only.add_argument("--agg", action="store_const", dest="only", const="agg",
                       help="time sum_agg and max_agg alone")
+    only.add_argument("--dec", action="store_const", dest="only", const="dec",
+                      help="time the pair dot and the slot gather's backward alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device is available; nothing was run", file=sys.stderr)
@@ -449,6 +552,9 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     for tname, arrays in tables().items():
         nbr, mask, rslot = (torch.from_numpy(a).to(dev) for a in arrays)
+        if args.only == "dec":
+            time_dec(libs, tname, nbr, mask, rslot, gen)
+            continue
         if args.only != "gat":
             time_agg(libs, tname, nbr, mask, gen)
         if args.only == "agg":

@@ -53,6 +53,7 @@ from gnn_tumor_seg_tpu_torch.ops.kernels import slot_gather, weighted_sum
 from gnn_tumor_seg_tpu_torch.ops.precision import precision_scope
 from gnn_tumor_seg_tpu_torch.ops.sddmm import sddmm
 from gnn_tumor_seg_tpu_torch.train.losses import weighted_cross_entropy
+from torch_port_tables import punch_holes
 
 CLASS_WEIGHTS = np.asarray([0.1, 1, 2, 2], np.float32)
 
@@ -196,7 +197,11 @@ def test_weighted_sum_reverse_and_slot_gather_backward_are_transposes(graphs):
     torch.testing.assert_close(lhs, rhs, rtol=1e-5, atol=0.0)
 
 
-@pytest.mark.parametrize("H,F", [(2, 16), (1, 20)])
+# (2,16) and (1,20), then the widths at which the pair-dot kernel reads
+# vectors of 1 (F=3), 2 (F=6) and 4 (F=36, 16, 4) with 1, 2, 4, 8 or 16
+# lanes a head, and one lane holding a whole head (F=4)
+@pytest.mark.parametrize("H,F", [(2, 16), (1, 20), (1, 3), (2, 6), (1, 36), (4, 16),
+                                 (1, 4)])
 def test_sddmm_matches_jax(graphs, H, F):
     jg, tg = graphs
     B, N, D = tg.nbr.shape
@@ -211,6 +216,89 @@ def test_sddmm_matches_jax(graphs, H, F):
         want = jax_sddmm(jnp.asarray(a), jnp.asarray(c), jg.nbr, jg.nbr_mask,
                          impl="pallas", tiled=jg.tiled)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-3, atol=3e-3)
+
+
+def _holed_mask(tg, frac=0.2, seed=11):
+    """tg's mask with holes (punch_holes): tg.rslot still holds."""
+    nbr, mask, rslot = (x.numpy() for x in (tg.nbr, tg.nbr_mask, tg.rslot))
+    return punch_holes(np.random.default_rng(seed), nbr, mask, rslot, frac)
+
+
+@pytest.mark.parametrize("H,F", [(1, 20), (4, 16), (2, 6)])
+def test_pairdot_on_a_table_with_holes_matches_jax(graphs, H, F):
+    """On a table with real slots after padded ones, sddmm and the pair
+    dot's plain version against the JAX dense SDDMM (rtol/atol 1e-5), with
+    exactly 0 on every padded slot (+0.0 from the pair dot)."""
+    jg, tg = graphs
+    B, N, D = tg.nbr.shape
+    mask = _holed_mask(tg)
+    a, c = _normal(30 + H, B, N, H, F), _normal(40 + F, B, N, H, F)
+    want = np.asarray(jax_sddmm(jnp.asarray(a), jnp.asarray(c), jg.nbr,
+                                jnp.asarray(mask)))
+    args = (torch.from_numpy(a), torch.from_numpy(c), tg.nbr, torch.from_numpy(mask))
+    for got in (sddmm(*args), weighted_sum.pairdot_plain(*args)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+        assert (got.numpy()[mask == 0] == 0).all()
+    plain = weighted_sum.pairdot_plain(*args).numpy()
+    assert not np.signbit(plain[mask == 0]).any()
+    assert (plain[mask > 0] != 0).all()              # the real slots do score
+    assert weighted_sum.pairdot.launches == 0
+
+
+@pytest.mark.parametrize("W", [1, 3, 4])
+def test_slot_gather_backward_on_a_table_with_holes_matches_jax(graphs, W):
+    """On the same holed table, the slot gather's backward (plain version,
+    through gather_slots) against the VJP of the JAX dense gather times the
+    mask (rtol/atol 1e-5), and bitwise equal to slot_gather_backward."""
+    jg, tg = graphs
+    B, N, D = tg.nbr.shape
+    mask = _holed_mask(tg)
+    x = _normal(50 + W, B, N, W)
+    ct = _normal(60 + W, B, N, D, W)
+    t = torch.from_numpy(x).requires_grad_()
+    out = slot_gather.gather_slots(t, tg.nbr, torch.from_numpy(mask), tg.rslot)
+    out.backward(torch.from_numpy(ct))
+
+    def dense(v):
+        return _dense_gather(v, jg.nbr) * jnp.asarray(mask)[..., None]
+
+    want, vjp = jax.vjp(dense, jnp.asarray(x))
+    np.testing.assert_array_equal(out.detach().numpy(), np.asarray(want))
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(vjp(jnp.asarray(ct))[0]),
+                               rtol=1e-5, atol=1e-5)
+    direct = slot_gather.slot_gather_backward(torch.from_numpy(ct), tg.nbr,
+                                              torch.from_numpy(mask), tg.rslot)
+    assert torch.equal(direct, t.grad)
+    assert slot_gather.slot_gather_backward.launches == 0
+
+
+@pytest.mark.parametrize("case", ["pairdot N*H*F", "pairdot N*D*H", "slot_gather_bwd"])
+def test_kernels_refuse_offsets_past_32_bits(case, monkeypatch):
+    """The pair dot indexes a graph, and the slot gather's backward its
+    gout, with 32-bit integers: past 2**31 the wrappers raise ValueError
+    before they build anything (meta tensors: no memory, no card)."""
+    def no_build():
+        raise AssertionError("a kernel library was built")
+
+    monkeypatch.setattr(weighted_sum, "build", no_build)
+    monkeypatch.setattr(slot_gather, "build", no_build)
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(*shape, dtype=dtype, device="meta")
+
+    if case == "slot_gather_bwd":
+        n = 2 ** 23
+        nbr = meta(1, n, 16, dtype=torch.int32)
+        with pytest.raises(ValueError, match=r"B\*N\*D\*W = 2147483648 >= 2\*\*31"):
+            slot_gather.slot_gather_backward(meta(1, n, 16, 16), nbr, meta(1, n, 16),
+                                             torch.empty_like(nbr))
+        return
+    n, D, H, F = (2 ** 23, 12, 1, 256) if case == "pairdot N*H*F" else (2 ** 24, 128, 1, 4)
+    what = case.split()[1].replace("*", r"\*")
+    a = meta(1, n, H, F)
+    with pytest.raises(ValueError, match=rf"{what} = 2147483648 >= 2\*\*31"):
+        weighted_sum.pairdot(a, torch.empty_like(a), meta(1, n, D, dtype=torch.int32),
+                             meta(1, n, D))
 
 
 def _grads_within(grads, want, rel):

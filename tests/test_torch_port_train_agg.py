@@ -36,6 +36,7 @@ from gnn_tumor_seg_tpu_torch.ops.kernels.max_agg import (
     max_aggregate_plain)
 from gnn_tumor_seg_tpu_torch.ops.kernels.sum_agg import (sum_aggregate,
                                                          sum_aggregate_plain)
+from torch_port_tables import punch_holes
 
 N, N_REAL, B, F = 128, 110, 2, 24
 
@@ -71,12 +72,7 @@ def _holed_tables(seed, D, frac=0.2):
     then have real slots after padded ones, padded slots keep their
     neighbour ids, and the table stays symmetric."""
     nbr, mask, rslot = _tables(seed, D)
-    rng = np.random.default_rng(seed + 1000)
-    b, v, d = np.nonzero((mask > 0) & (rng.random(mask.shape) < frac))
-    mask = mask.copy()
-    mask[b, v, d] = 0
-    mask[b, nbr[b, v, d], rslot[b, v, d]] = 0
-    assert ((mask[..., 1:] > 0) & (mask[..., :-1] == 0)).any()
+    mask = punch_holes(np.random.default_rng(seed + 1000), nbr, mask, rslot, frac)
     return nbr, mask, reciprocal_slots(nbr, mask)
 
 
