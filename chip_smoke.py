@@ -60,6 +60,23 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    seed-0 weights, one request "exact" and one "fast", each launching the
    fused forward 5 times, with logits within GAT_LOGIT_TOL (exact) or
    FAST_LOGIT_TOL (fast) of the plain path's;
+4b. device preprocessing, the cell serve-1mri-deviceprep: the same brain
+   and checkpoints through predict_single_mri(prep_impl="device"), three
+   requests "exact" and three "fast" (7 max_agg launches each and no other
+   kernel), one GAT request "exact" (5 gat_fwd), one exact request through
+   --slic_impl tpu (host normalization, SLIC on the card); before them the
+   chain (ops/slic_device.py) on the brain's crop: q and the standardized
+   volume bitwise equal to the host's normalize/standardize, a fast-mode
+   call on a non-integral copy held to the quantile of its bfloat16-rounded
+   values, the Gaussian within CHAIN_SMOOTH_TOL of scipy, the raw SLIC
+   labels in >= CHAIN_SLIC_AGREEMENT of the voxels like the host canonical's
+   (native), two runs bitwise equal, the standardized volume on the card.
+   Then the chain's device time by part (upload, order statistics, affine,
+   smoothing, assignment and update passes) with launches and the
+   assignment pass's byte bound, a profiled device-prep request beside
+   phase 4's profiled host-prep one (busy time, idle share, the final
+   labels they share), and `python -m gnn_tumor_seg_tpu_torch.cli.warmup
+   --slic_impl tpu` in its own process;
 5. serve timing, on the served graph's own neighbour table (N=12288, D=16
    for this brain): max_agg checked bitwise against its plain version once
    more at F=20 and 256 in both dtypes, then its device time (CUDA-graph
@@ -80,7 +97,11 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    through the plain versions, bitwise for the three SAGE models and within
    GAT_GRAD_TOL for GAT. Then the weighted cells: preprocess-weighted-2mri
    (two 240x240x155 brains through cli.preprocess --weighted, then GSmean
-   one fast epoch on that store through cli.train_gnn), and
+   one fast epoch on that store through cli.train_gnn; then the same two
+   brains through cli.preprocess --prep_impl device, whose inputs must be
+   bitwise the host store's, and through --slic_impl tpu --prep_impl host,
+   whose partitions, edges and labels the device store must have, with
+   features within CHAIN_SMOOTH_TOL), and
    train-gsmean-weighted-b6 (the same 6 graphs with intensity edge weights,
    sigma 0.1: GSmean and GSgcn [256]*6, 3 fast epochs with a falling loss
    and 1 exact, 7 wsum and 6 wsum_bwd per step, 7 wsum per evaluation
@@ -115,7 +136,6 @@ the repository, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
-import concurrent.futures
 import contextlib
 import json
 import os
@@ -231,41 +251,23 @@ def phase_environment() -> dict:
 def phase_build() -> None:
     """Every library from its source, one compiler process each, all started
     together."""
+    from gnn_tumor_seg_tpu_torch.build import build_all
     from gnn_tumor_seg_tpu_torch.data import native
-    from gnn_tumor_seg_tpu_torch.ops.kernels import (fused_gat, max_agg,
-                                                     slot_gather, sum_agg,
-                                                     weighted_sum)
 
-    def timed(fn):
-        t = time.perf_counter()
-        out = fn()
-        return out, time.perf_counter() - t
-
-    jobs = {"max_agg.cu (nvcc sm_90a)": max_agg.build,
-            "sum_agg.cu (nvcc sm_90a)": sum_agg.build,
-            "fused_gat.cu (nvcc sm_90a)": fused_gat.build,
-            "weighted_sum.cu (nvcc sm_90a)": weighted_sum.build,
-            "slot_gather.cu (nvcc sm_90a)": slot_gather.build,
-            "gts_native.cc (g++)": native.build}
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        futures = {name: pool.submit(timed, fn) for name, fn in jobs.items()}
-        for name, fut in futures.items():
-            out, secs = fut.result()
-            log(f"[build] {name}: {secs:.2f} s")
-            if name.endswith("(nvcc sm_90a)"):
-                for line in out.strip().splitlines():
-                    log(f"[build]   {line}")
-            if name.startswith(("weighted_sum.cu", "fused_gat.cu", "sum_agg.cu",
-                                "max_agg.cu", "slot_gather.cu")):
-                for kern, regs, stores, loads in ptxas_kernels(out):
-                    if any(k in kern for k in ("wsum_kernel", "gat_fwd_kernel",
-                                               "gat_bwd_kernel", "gat_rev_kernel",
-                                               "sum_agg_kernel", "max_agg_kernel",
-                                               "pairdot_kernel",
-                                               "slot_gather_bwd_kernel")):
-                        log(f"[build] {kern}: {regs} registers, spill stores "
-                            f"{stores} B, spill loads {loads} B")
-                        check(stores == loads == 0, f"{kern} spills registers")
+    for name, (out, secs) in build_all(cuda=True).items():
+        log(f"[build] {name}: {secs:.2f} s")
+        if name.endswith("(nvcc sm_90a)"):
+            for line in out.strip().splitlines():
+                log(f"[build]   {line}")
+            for kern, regs, stores, loads in ptxas_kernels(out):
+                if any(k in kern for k in ("wsum_kernel", "gat_fwd_kernel",
+                                           "gat_bwd_kernel", "gat_rev_kernel",
+                                           "sum_agg_kernel", "max_agg_kernel",
+                                           "pairdot_kernel",
+                                           "slot_gather_bwd_kernel")):
+                    log(f"[build] {kern}: {regs} registers, spill stores "
+                        f"{stores} B, spill loads {loads} B")
+                    check(stores == loads == 0, f"{kern} spills registers")
     check(native.available(), "native host library did not load")
 
 
@@ -903,6 +905,7 @@ def write_inputs(tmp: str, shape) -> tuple[str, str, str]:
     from gnn_tumor_seg_tpu_torch.models.refine_cnn import CnnRefinementNet
     from gnn_tumor_seg_tpu_torch.train.checkpoint import save_checkpoint
 
+    t = time.perf_counter()
     mods, _ = make_brain(np.random.default_rng(SEED), shape)
     in_dir = os.path.join(tmp, "input")
     os.makedirs(in_dir)
@@ -918,13 +921,21 @@ def write_inputs(tmp: str, shape) -> tuple[str, str, str]:
     gat_hp = hardcoded_hyperparameters("GAT")
     save_checkpoint(os.path.join(tmp, "gat.ckpt"), init_graph_net(
         "GAT", gat_hp, torch.Generator().manual_seed(SEED)), "GAT", gat_hp)
+    log(f"[serve] wrote inputs {shape} in {time.perf_counter() - t:.2f} s")
     return in_dir, gnn_ckpt, cnn_ckpt
 
 
+def gat_checkpoint(gnn_ckpt: str) -> str:
+    """The GAT checkpoint write_inputs puts beside the GSpool one."""
+    return os.path.join(os.path.dirname(gnn_ckpt), "gat.ckpt")
+
+
 def phase_serve(device, shape=BRAIN_SHAPE, num_nodes=NUM_NODES,
-                requests=REQUESTS_PER_MODE, card="") -> dict:
-    """Drive predict_single_mri; returns the served graph and the kernel's
-    launch total. On the CPU (a rehearsal) the kernel is never launched."""
+                requests=REQUESTS_PER_MODE, card="", inputs=None) -> dict:
+    """Drive predict_single_mri on `inputs` (write_inputs' triple; written
+    to a temporary directory when None); returns the served graph and the
+    kernel's launch total. On the CPU (a rehearsal) the kernel is never
+    launched."""
     from gnn_tumor_seg_tpu_torch.cli.common import (load_cnn_from_checkpoint,
                                                     load_gnn_from_checkpoint,
                                                     resolve_slic_fn)
@@ -934,10 +945,11 @@ def phase_serve(device, shape=BRAIN_SHAPE, num_nodes=NUM_NODES,
 
     on_card = torch.device(device).type == "cuda"
     result = {"launches": 0}
-    with tempfile.TemporaryDirectory(prefix="gts_smoke_") as tmp:
-        t = time.perf_counter()
-        in_dir, gnn_ckpt, cnn_ckpt = write_inputs(tmp, shape)
-        log(f"[serve] wrote inputs {shape} in {time.perf_counter() - t:.2f} s")
+    with contextlib.ExitStack() as stack:
+        if inputs is None:
+            tmp = stack.enter_context(tempfile.TemporaryDirectory(prefix="gts_smoke_"))
+            inputs = write_inputs(tmp, shape)
+        in_dir, gnn_ckpt, cnn_ckpt = inputs
         gnn, _, gnn_forward = load_gnn_from_checkpoint(gnn_ckpt, device=device)
         _, _, cnn_forward = load_cnn_from_checkpoint(cnn_ckpt, device=device)
         n_layers = gnn.num_layers
@@ -1023,10 +1035,11 @@ def phase_serve(device, shape=BRAIN_SHAPE, num_nodes=NUM_NODES,
         result["graph"] = seen["graph"]
         if on_card:
             with precision_scope("exact"):
-                result["launches"] += profile_request(lambda: predict_single_mri(
+                result["profile"] = profile_request(lambda: predict_single_mri(
                     in_dir, gnn_forward, cnn_forward, num_nodes=num_nodes,
                     slic_fn=resolve_slic_fn("native")), n_layers, card)
-        result["gat"] = serve_gat(in_dir, os.path.join(tmp, "gat.ckpt"),
+            result["launches"] += result["profile"]["launches"]
+        result["gat"] = serve_gat(in_dir, gat_checkpoint(gnn_ckpt),
                                   cnn_forward, device, num_nodes, shape, card)
     return result
 
@@ -1090,11 +1103,348 @@ def serve_gat(in_dir, gat_ckpt, cnn_forward, device, num_nodes, shape,
     return {"launches": total}
 
 
-def profile_request(run, n_layers: int, card: str) -> int:
-    """One more exact request under torch.profiler: device busy time (the
-    sum of kernel and copy time on the card; one stream, so they do not
-    overlap) against the request's wall time, and the kernels that take it.
-    Returns the kernel launches counted in the request."""
+def label_agreement(a: np.ndarray, b: np.ndarray) -> float:
+    """Fraction of voxels matching after mapping each a-label to its
+    majority b-label (the smallest on a tie): `_agreement` of
+    tests/test_slic_tpu.py, computed from the sorted label pairs instead of
+    a dense confusion matrix, which would not fit at BraTS size."""
+    a, b = a.ravel().astype(np.int64), b.ravel().astype(np.int64)
+    nb = int(b.max()) + 1
+    pairs, counts = np.unique(a * nb + b, return_counts=True)
+    pa, pb = pairs // nb, pairs % nb
+    order = np.lexsort((pb, -counts, pa))
+    first = np.ones(len(order), bool)
+    first[1:] = pa[order][1:] != pa[order][:-1]
+    best = np.full(int(a.max()) + 1, -1, np.int64)
+    best[pa[order][first]] = pb[order][first]
+    return float(np.mean(best[a] == b))
+
+
+CHAIN_SMOOTH_TOL = 2e-5
+CHAIN_SLIC_AGREEMENT = 0.98
+
+
+def check_chain(in_dir, device, card, num_nodes=NUM_NODES) -> dict:
+    """The device chain (ops/slic_device.serve_preprocess_device) on the
+    brain's crop, held to the host: q and the standardized volume bitwise
+    (exact mode), one fast-mode call on a non-integral copy (+0.25) held to
+    the quantile of its bfloat16-rounded values, gauss_smooth within
+    CHAIN_SMOOTH_TOL of scipy, the raw SLIC labels in >= CHAIN_SLIC_AGREEMENT
+    of the voxels like the host canonical's (native, on the same
+    standardized volume), two runs bitwise equal, every tensor on
+    `device`."""
+    from scipy import ndimage
+
+    from gnn_tumor_seg_tpu_torch.config import (DEFAULT_MODALITY_EXTS,
+                                                STANDARDIZATION_STATS)
+    from gnn_tumor_seg_tpu_torch.data import nifti
+    from gnn_tumor_seg_tpu_torch.data.image import (_fast_quantile_per_channel,
+                                                    determine_brain_crop,
+                                                    normalize_img, standardize_img)
+    from gnn_tumor_seg_tpu_torch.data.slic import slic_supervoxels
+    from gnn_tumor_seg_tpu_torch.ops import slic_device
+
+    image = nifti.read_in_patient_sample(in_dir, DEFAULT_MODALITY_EXTS)
+    crop = np.ascontiguousarray(image[determine_brain_crop(image)])
+    mean, std = (np.asarray(v, np.float32) for v in STANDARDIZATION_STATS)
+    runs = [slic_device.serve_preprocess_device(crop, num_nodes, 0.5, mean, std,
+                                                device=device) for _ in range(2)]
+    (labels, vol, q, step), (labels2, vol2, q2, _) = runs
+    check(vol.device.type == torch.device(device).type,
+          f"the standardized volume is on {vol.device}")
+    check(np.array_equal(q, _fast_quantile_per_channel(crop, 0.995)),
+          f"device q {q} differs from the host's")
+    host_std = standardize_img(normalize_img(crop), mean, std)
+    got = vol.permute(1, 2, 3, 0).cpu().numpy()
+    check(np.array_equal(got, host_std),
+          f"standardized volume differs from the host's in "
+          f"{int((got != host_std).sum())} values")
+    check(np.array_equal(labels, labels2) and np.array_equal(q, q2)
+          and torch.equal(vol, vol2), "two runs of the chain differ")
+    off = crop + np.float32(0.25)
+    _, _, qf, _ = slic_device.serve_preprocess_device(
+        off, num_nodes, 0.5, mean, std, sigma=0.0, max_iter=0,
+        input_dtype=torch.bfloat16, device=device)
+    rounded = torch.from_numpy(off).to(torch.bfloat16).float().numpy()
+    check(np.array_equal(qf, _fast_quantile_per_channel(rounded, 0.995)),
+          f"fast-mode q {qf} is not the quantile of the bfloat16-rounded crop")
+    smoothed = slic_device.gauss_smooth(vol, 1.0).permute(1, 2, 3, 0).cpu().numpy()
+    want = np.stack([ndimage.gaussian_filter(host_std[..., c], 1.0)
+                     for c in range(host_std.shape[-1])], -1)
+    smooth_err = float(np.abs(smoothed - want).max())
+    check(np.allclose(smoothed, want, rtol=CHAIN_SMOOTH_TOL, atol=CHAIN_SMOOTH_TOL),
+          f"gauss_smooth differs from scipy by up to {smooth_err}")
+    t = time.perf_counter()
+    host = slic_supervoxels(host_std, n_segments=num_nodes, compactness=0.5,
+                            enforce_connectivity=False, use_native=True)
+    host_s = time.perf_counter() - t
+    agree = label_agreement(labels, host)
+    check(agree >= CHAIN_SLIC_AGREEMENT,
+          f"device SLIC agrees with the host canonical in {agree} of the voxels")
+    log(f"[deviceprep] chain on the crop {crop.shape}: q and standardized "
+        f"volume bitwise the host's, fast-mode q of the bf16-rounded copy, "
+        f"smoothing within {smooth_err:.3g} of scipy, raw labels agree "
+        f"{agree:.6f} with host native SLIC ({host_s:.2f} s), "
+        f"deterministic; card: {card}")
+    return {"crop": crop, "q": q, "mean": mean, "std": std}
+
+
+def profile_chain_parts(chain, device, card, num_nodes=NUM_NODES,
+                        max_iter=10, sessions=3) -> dict:
+    """The chain's device time by part, each with its launches: upload,
+    order statistics, affine, smoothing, and the SLIC loop split by running
+    slic_iterate at 0, 1 and 2 rounds (setup with the first centers; + one
+    assignment pass; + an update and another pass), beside the whole loop
+    at max_iter rounds. Each part runs inside its own record_function
+    range under torch.profiler, which gives its device busy ms and
+    launches: a kernel or copy belongs to the range of the operation that
+    launched it (the profiler's correlation; by timestamps, events moved
+    between parts from one run to the next). The profiler at times drops
+    a part's events (most often the upload's copy and kernel, the first
+    device work of a session), never adds any, so each part is taken from
+    the session, of `sessions`, that recorded the most launches for it;
+    beside it is logged its span on the stream between CUDA events, which
+    also counts the host work between launches (the upload's int16 check
+    and pinning, the fixed-point scale's read-back). The
+    assignment pass's byte bound: the volume's C floats read and one int32
+    id written per voxel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from gnn_tumor_seg_tpu_torch.ops import slic_device
+
+    crop = chain["crop"]
+    X, Y, Z, C = crop.shape
+    dev = torch.device(device)
+    pos = (X * Y * Z - 1) * 0.995
+    names = ["upload", "order statistics", "affine", "smoothing"] + [
+        f"slic loop, {i} rounds" for i in (0, 1, 2, max_iter)]
+    spans = {name: [] for name in names}
+
+    def part(name, fn):
+        with record_function(f"chain: {name}"):
+            if dev.type != "cuda":
+                return fn()
+            ends = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ends[0].record()
+            out = fn()
+            ends[1].record()
+            torch.cuda.synchronize()
+            spans[name].append(ends[0].elapsed_time(ends[1]))
+        return out
+
+    def session():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            img = part(names[0], lambda: slic_device.upload(crop, dev))
+            part(names[1], lambda: slic_device.order_stats(
+                img, int(np.floor(pos)), int(np.ceil(pos))))
+            vol = part(names[2], lambda: slic_device.affine(
+                img, chain["q"], chain["mean"], chain["std"]))
+            sm = part(names[3], lambda: slic_device.gauss_smooth(vol, 1.0))
+            for name, rounds in zip(names[4:], (0, 1, 2, max_iter)):
+                part(name, lambda r=rounds: slic_device.assign_core(
+                    sm, num_nodes, 0.5, r))
+        got = {name: (0.0, 0) for name in names}
+        for e in prof.events():
+            if e.device_type != DeviceType.CPU or not e.kernels:
+                continue
+            owner = e
+            while owner is not None and not owner.name.startswith("chain: "):
+                owner = owner.cpu_parent
+            if owner is not None:
+                ms, n = got[owner.name[len("chain: "):]]
+                got[owner.name[len("chain: "):]] = (
+                    ms + sum(k.duration for k in e.kernels) / 1e3, n + len(e.kernels))
+        return got
+
+    runs = [session() for _ in range(sessions)]
+    got = {n: max((r[n] for r in runs), key=lambda v: v[1]) for n in names}
+    log(f"[deviceprep] launches recorded by part in {sessions} profiler "
+        f"sessions: " + json.dumps({n: [r[n][1] for r in runs] for n in names}))
+    log("[deviceprep] stream span by part (CUDA events, ms, each session): "
+        + json.dumps({n: [round(v, 4) for v in spans[n]] for n in names}))
+    missing = [n for n in names if got[n][1] == 0]
+    if missing:
+        log(f"[deviceprep] the profiler recorded no launch of {missing} in "
+            f"any session; their spans stand for them")
+    loop = [tuple(got[n]) for n in names[4:]]
+    setup = loop[0]
+    assign = tuple(b - a for a, b in zip(loop[0], loop[1]))
+    update = tuple(c - 2 * b + a for a, b, c in zip(loop[0], loop[1], loop[2]))
+    parts = {**{n: tuple(got[n]) for n in names[:4]},
+             "slic setup and first centers": setup,
+             f"assignment passes (x{max_iter})": tuple(max_iter * v for v in assign),
+             f"update passes (x{max_iter - 1})": tuple((max_iter - 1) * v
+                                                       for v in update)}
+    total = sum(ms for ms, _ in parts.values())
+    bound_ms = X * Y * Z * (4 * C + 4) / HBM_BYTES_PER_S * 1e3
+    for name, (ms, n) in parts.items():
+        log(f"[deviceprep] device time {name}: {ms:.3f} ms, {n} launches")
+    log(f"[deviceprep] chain device time {total:.3f} ms; the SLIC loop at "
+        f"{max_iter} rounds measured whole {loop[3][0]:.3f} ms, {loop[3][1]} "
+        f"launches; one assignment pass {assign[0]:.3f} ms, {assign[1]} "
+        f"launches, byte bound {bound_ms:.4f} ms ({X * Y * Z} voxels x "
+        f"({C} floats + 1 int32)); one update pass {update[0]:.3f} ms, "
+        f"{update[1]} launches; card: {card}")
+    return {"parts": parts, "total_ms": total, "assign_pass_ms": assign[0],
+            "assign_bound_ms": bound_ms}
+
+
+def phase_serve_deviceprep(device, inputs, card="", num_nodes=NUM_NODES,
+                           requests=REQUESTS_PER_MODE, shape=BRAIN_SHAPE,
+                           host_run=None) -> dict:
+    """The cell serve-1mri-deviceprep: serve-1mri's brain and models through
+    predict_single_mri(prep_impl="device"), `requests` requests in "exact"
+    and as many in "fast" (7 max_agg launches each, nothing else), then one
+    GAT request in "exact" (5 gat_fwd launches); the chain held to the host
+    (check_chain); one exact request through --slic_impl tpu (host
+    normalization, SLIC on the card); on the card also the chain's device
+    time by part, a profiled device-prep request beside phase 4's profiled
+    host-prep one, `host_run` (busy, idle share and the final labels they
+    share), and one `python -m gnn_tumor_seg_tpu_torch.cli.warmup
+    --slic_impl tpu` in its own process. Returns the launches by kernel."""
+    from gnn_tumor_seg_tpu_torch.cli.common import (load_cnn_from_checkpoint,
+                                                    load_gnn_from_checkpoint,
+                                                    resolve_slic_fn)
+    from gnn_tumor_seg_tpu_torch.cli.predict_single import predict_single_mri
+    from gnn_tumor_seg_tpu_torch.ops.precision import precision_scope
+
+    on_card = torch.device(device).type == "cuda"
+    in_dir, gnn_ckpt, cnn_ckpt = inputs
+    gnn, _, gnn_forward = load_gnn_from_checkpoint(gnn_ckpt, device=device)
+    gat, _, gat_forward = load_gnn_from_checkpoint(gat_checkpoint(gnn_ckpt),
+                                                   device=device)
+    _, _, cnn_forward = load_cnn_from_checkpoint(cnn_ckpt, device=device)
+    with precision_scope("exact"):
+        chain = check_chain(in_dir, device, card, num_nodes)
+    total = dict(NO_LAUNCHES)
+
+    def request(label, forward, want, **kw):
+        st = {}
+        read = _reset_counts()
+        t = time.perf_counter()
+        pred = predict_single_mri(in_dir, forward, cnn_forward,
+                                  num_nodes=num_nodes, stage_times=st, **kw)
+        wall = time.perf_counter() - t
+        counts = read()
+        for k, n in counts.items():
+            total[k] += n
+        if on_card:
+            check(counts == {**NO_LAUNCHES, **want},
+                  f"{label}: kernel launches {counts}, expected {want}")
+        labels = set(np.unique(pred).tolist())
+        check(pred.shape == tuple(shape) and pred.dtype == np.int16,
+              f"{label}: prediction {pred.shape} {pred.dtype}")
+        check(labels <= {0, 1, 2, 4}, f"{label}: labels {labels}")
+        stages = {k: (round(v, 4) if isinstance(v, float) else v)
+                  for k, v in st.items()}
+        log(f"[deviceprep] {label}: {wall:.3f} s  launches={counts}  "
+            f"labels={sorted(labels)}  stages={json.dumps(stages)}  card: {card}")
+        return pred
+
+    gspool = {"max_agg": gnn.num_layers}
+    for mode in ("exact", "fast"):
+        with precision_scope(mode):
+            for r in range(requests):
+                pred = request(f"{mode} request {r}", gnn_forward, gspool,
+                               prep_impl="device", device=device)
+                if mode == "exact":
+                    exact_pred = pred
+    with precision_scope("exact"):
+        request("GAT exact request", gat_forward, {"gat_fwd": gat.num_layers},
+                prep_impl="device", device=device)
+        request("exact request, --slic_impl tpu", gnn_forward, gspool,
+                slic_fn=resolve_slic_fn("tpu", device=device))
+    result = {"launches": total}
+    if not on_card:
+        return result
+    with precision_scope("exact"):
+        result["chain"] = profile_chain_parts(chain, device, card, num_nodes)
+        dev_run = profile_request(lambda: predict_single_mri(
+            in_dir, gnn_forward, cnn_forward, num_nodes=num_nodes,
+            prep_impl="device", device=device), gnn.num_layers, card,
+            "device-prep exact request")
+    log(f"[deviceprep] host-prep exact request (phase 4): wall "
+        f"{host_run['wall_ms']:.1f} ms, device busy {host_run['busy_ms']:.3f} ms, "
+        f"idle share {host_run['idle_share']:.6f}; card: {card}")
+    check(np.array_equal(dev_run["result"], exact_pred),
+          "the profiled device-prep request's labels differ from the first's")
+    shared = int((dev_run["result"] == host_run["result"]).sum())
+    log(f"[deviceprep] final labels shared by the device-prep and host-prep "
+        f"requests: {shared} of {exact_pred.size} voxels "
+        f"({shared / exact_pred.size:.6f}); card: {card}")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gnn_tumor_seg_tpu_torch.cli.warmup", "-g", gnn_ckpt,
+         "-c", cnn_ckpt, "--slic_impl", "tpu"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    warm_s = time.perf_counter() - t
+    check(proc.returncode == 0, f"cli.warmup failed:\n{proc.stdout}\n{proc.stderr}")
+    for line in proc.stdout.strip().splitlines():
+        log(f"[deviceprep] warmup: {line}")
+    log(f"[deviceprep] cli.warmup process: {warm_s:.2f} s; card: {card}")
+    result.update(device_prep=dev_run, host_prep=host_run, shared=shared,
+                  warmup_s=warm_s)
+    return result
+
+
+def phase_preprocess_device(tmp: str, card: str, host_s: float, device="cuda",
+                            num_nodes=NUM_NODES) -> dict:
+    """Bulk device preprocessing on the two brains of
+    preprocess-weighted-2mri (after phase_preprocess_weighted, whose host
+    store it reads): cli.preprocess --prep_impl device --weighted, and the
+    host path with --slic_impl tpu. The device store's inputs must be
+    bitwise the host store's; its partitions, edges and labels those of
+    the --slic_impl tpu store, its features within CHAIN_SMOOTH_TOL."""
+    from gnn_tumor_seg_tpu_torch.cli import preprocess
+    from gnn_tumor_seg_tpu_torch.data import nifti, store
+    from gnn_tumor_seg_tpu_torch.ops.precision import precision_scope
+
+    raw = os.path.join(tmp, "raw")
+    args = ["-d", raw, "--weighted", "-n", str(num_nodes), "-k", "10", "-l",
+            "_seg.nii.gz", "--device", device]
+    secs = {}
+    with precision_scope("exact"):
+        for name, flags in (("device", ["--prep_impl", "device"]),
+                            ("tpu", ["--slic_impl", "tpu", "--prep_impl", "host"])):
+            t = time.perf_counter()
+            preprocess.main([*args, "-o", os.path.join(tmp, f"{name}_store"), *flags])
+            secs[name] = time.perf_counter() - t
+    ids = sorted(os.listdir(os.path.join(tmp, "device_store")))
+    check(ids == ["BraTS_000", "BraTS_001"], f"device-prep samples {ids}")
+    for mri_id in ids:
+        def path(st, suffix):
+            return os.path.join(tmp, st, mri_id, f"{mri_id}{suffix}")
+
+        check(np.array_equal(nifti.read_nifti(path("device_store", "_input.nii.gz")),
+                             nifti.read_nifti(path("weighted_store", "_input.nii.gz"))),
+              f"{mri_id}: device-prep input differs from the host path's")
+        check(np.array_equal(
+            nifti.read_nifti(path("device_store", "_supervoxels.nii.gz")),
+            nifti.read_nifti(path("tpu_store", "_supervoxels.nii.gz"))),
+            f"{mri_id}: device-prep partition differs from --slic_impl tpu's")
+        a = store.load_graph_npz(path("device_store", "_graph.npz"))
+        b = store.load_graph_npz(path("tpu_store", "_graph.npz"))
+        check(np.array_equal(a.src, b.src) and np.array_equal(a.dst, b.dst)
+              and np.array_equal(a.labels, b.labels),
+              f"{mri_id}: device-prep edges or labels differ from --slic_impl tpu's")
+        check(np.allclose(a.feats, b.feats, atol=CHAIN_SMOOTH_TOL, rtol=0),
+              f"{mri_id}: features differ by {np.abs(a.feats - b.feats).max()}")
+    log(f"[preprocess] 2 brains: host {host_s:.2f} s, --prep_impl device "
+        f"{secs['device']:.2f} s, --slic_impl tpu {secs['tpu']:.2f} s; inputs "
+        f"bitwise the host's, partitions, edges and labels those of --slic_impl "
+        f"tpu; card: {card}")
+    return {"host_s": host_s, **{f"{k}_s": v for k, v in secs.items()}}
+
+
+def profile_request(run, n_layers: int, card: str,
+                    label: str = "exact request") -> dict:
+    """One more request under torch.profiler: device busy time (the sum of
+    kernel and copy time on the card; one stream, so they do not overlap)
+    against the request's wall time, and the kernels that take it. Returns
+    the kernel launches counted in the request, the request's result, its
+    wall and busy ms and idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     from gnn_tumor_seg_tpu_torch.ops.kernels.max_agg import max_aggregate
@@ -1102,21 +1452,21 @@ def profile_request(run, n_layers: int, card: str) -> int:
     max_aggregate.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        run()
+        out = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     launches = max_aggregate.launches
-    check(launches == n_layers, f"profiled request: {launches} kernel launches")
+    check(launches == n_layers, f"profiled {label}: {launches} kernel launches")
 
     on_device = device_events(prof)
     busy_ms = sum(_device_us(e) for e in on_device) / 1e3
-    log(f"[profile] exact request: wall {wall_ms:.1f} ms, device busy "
-        f"{busy_ms:.3f} ms, idle share "
-        f"{(1 - busy_ms / wall_ms) if busy_ms else float('nan'):.6f}; "
-        f"card: {card}")
+    idle = (1 - busy_ms / wall_ms) if busy_ms else float("nan")
+    log(f"[profile] {label}: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.3f} ms, idle share {idle:.6f}; card: {card}")
     for e in on_device[:12]:
         log(f"[profile]   {_device_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
-    return launches
+    return {"launches": launches, "result": out, "wall_ms": wall_ms,
+            "busy_ms": busy_ms, "idle_share": idle}
 
 
 # ---------------------------------------------------------------------------
@@ -2205,13 +2555,20 @@ def main() -> int:
     dec_worst = phase_decomposed_kernel_check(dev)
     check_gat_dropout_trains(dev)
     done("phase 3")
-    serve = phase_serve("cuda", card=card)
+    with tempfile.TemporaryDirectory(prefix="gts_smoke_serve_") as serve_tmp:
+        inputs = write_inputs(serve_tmp, BRAIN_SHAPE)
+        serve = phase_serve("cuda", card=card, inputs=inputs)
+        done("phase 4")
+        deviceprep = phase_serve_deviceprep("cuda", inputs, card,
+                                            host_run=serve["profile"])
+        done("phase 4b")
     timing = phase_timing(serve["graph"], card)
-    done("phases 4-5")
+    done("phase 5")
     worst = max(worst, timing["max_abs_err"], train_worst["max_agg"])
     with tempfile.TemporaryDirectory(prefix="gts_smoke_train_") as tmp:
         train = phase_train(tmp, card)
         prep = phase_preprocess_weighted(tmp, card)
+        bulk = phase_preprocess_device(tmp, card, prep["preprocess_s"])
         weighted = phase_train_weighted(tmp, card)
         from gnn_tumor_seg_tpu_torch.data.dataset import ImageGraphDataset
 
@@ -2251,8 +2608,10 @@ def main() -> int:
         "route": "cuda",
         "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/max_agg.cu",
         "replaces": "gnn_tumor_seg_tpu/ops/pallas/gather_agg.py:135",
-        "launches": serve["launches"] + train_launches["max_agg"],
+        "launches": (serve["launches"] + deviceprep["launches"]["max_agg"]
+                     + train_launches["max_agg"]),
         "launches_by_path": {"serve": serve["launches"],
+                             "serve_deviceprep": deviceprep["launches"]["max_agg"],
                              "train": train_launches["max_agg"]},
         "max_abs_err": worst,
         "ms": f32["ms"],
@@ -2309,8 +2668,10 @@ def main() -> int:
         "route": "cuda",
         "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/fused_gat.cu",
         "replaces": "gnn_tumor_seg_tpu/ops/pallas/fused_gat.py:103",
-        "launches": serve["gat"]["launches"] + train_launches["gat_fwd"],
+        "launches": (serve["gat"]["launches"] + deviceprep["launches"]["gat_fwd"]
+                     + train_launches["gat_fwd"]),
         "launches_by_path": {"serve": serve["gat"]["launches"],
+                             "serve_deviceprep": deviceprep["launches"]["gat_fwd"],
                              "train": train_launches["gat_fwd"]},
         "max_abs_err": gat_worst["abs"]["gat_fwd"],
         "max_rel_err": gat_worst["rel"]["gat_fwd"],
@@ -2435,6 +2796,18 @@ def main() -> int:
                                   "bfloat16"),
     }]
     check(serve["gat"]["launches"] > 0, "gat_fwd was never launched on the serve path")
+    for k in ("max_agg", "gat_fwd"):
+        check(deviceprep["launches"][k] > 0,
+              f"{k} was never launched on the device-prep serve path")
+    chain = deviceprep["chain"]
+    log("[deviceprep] " + json.dumps({
+        "chain_device_ms": chain["total_ms"],
+        "parts_ms_launches": chain["parts"],
+        "assign_pass_ms": chain["assign_pass_ms"],
+        "assign_pass_bound_ms": chain["assign_bound_ms"],
+        "request_idle_share": {"device_prep": deviceprep["device_prep"]["idle_share"],
+                               "host_prep": deviceprep["host_prep"]["idle_share"]},
+        "bulk_2mri_s": bulk}))
     for label, st in (("step", step), ("GAT step", gat_step),
                       ("weighted GSmean step", wstep),
                       (f"GAT attn_drop={GAT_ATTN_DROP} step", drop_step),

@@ -17,7 +17,7 @@ import subprocess
 import tempfile
 
 __all__ = ["BUILD_DIR", "build_library", "build_cuda_library", "nvcc_path",
-           "check_launch"]
+           "check_launch", "build_all"]
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 # sm_90a (Hopper with its architecture-specific features), a plain C
@@ -83,3 +83,29 @@ def check_launch(lib: ctypes.CDLL, rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.gts_cuda_error_string(rc).decode()}")
+
+
+def build_all(cuda: bool = True) -> dict[str, tuple[str, float]]:
+    """Build the native host library and, with `cuda`, the five kernel
+    libraries, one compiler process each, all started together. Returns
+    {library: (compiler output, seconds)}; raises on the first failure."""
+    import concurrent.futures
+    import time
+
+    from .data import native
+    from .ops.kernels import fused_gat, max_agg, slot_gather, sum_agg, weighted_sum
+
+    jobs = {"gts_native.cc (g++)": native.build}
+    if cuda:
+        jobs.update({f"{mod.__name__.rsplit('.', 1)[1]}.cu (nvcc sm_90a)": mod.build
+                     for mod in (max_agg, sum_agg, fused_gat, weighted_sum,
+                                 slot_gather)})
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {name: pool.submit(timed, fn) for name, fn in jobs.items()}
+        return {name: fut.result() for name, fut in futures.items()}

@@ -5,12 +5,16 @@ gnn_tumor_seg_tpu/cli/common.py).
 Two variants with the same output: `predict_one_sample_device` (the default)
 keeps the GNN logits on the card and gathers the CNN's input crop there;
 `predict_one_sample` materializes the voxel logits on the host, as the
-reference does. The CNN crop is padded to the JAX package's bucket and floor
-(`_CROP_BUCKET`, `default_crop_floor`): edge-replicated rows are not the same
-as the conv's replicate padding near the crop face, so parity with the JAX
-package needs the same padding. The JAX package's fixed serve pad shape
-(`BRATS_RAW_SHAPE`) exists only to avoid XLA recompiles and pads with
-background, so the port does not pad.
+reference does. The device variant also takes the device preprocessing
+chain's outputs (ops/slic_device.py): the standardized volume left on the
+card, whose channels it reads in place of an image upload, and the raw
+supervoxel partition shipped before the background discard was known, with
+the remap to node ids. The CNN crop is padded to the JAX package's bucket
+and floor (`_CROP_BUCKET`, `default_crop_floor`): edge-replicated rows are
+not the same as the conv's replicate padding near the crop face, so parity
+with the JAX package needs the same padding. The JAX package's fixed serve
+pad shape (`BRATS_RAW_SHAPE`) exists only to avoid XLA recompiles and pads
+with background, so the port does not pad.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_BACKGROUND_NODE_LOGITS
-from ..ops.precision import compute_dtype
+from ..ops.precision import compute_dtype, fast_precision
 from ..runtime import resolve_device
 from ..train.checkpoint import cnn_from_leaves, gnn_from_leaves, load_checkpoint
 
@@ -32,6 +36,7 @@ __all__ = [
     "node_logits_to_voxel_logits", "predict_one_sample",
     "predict_one_sample_device", "resolve_slic_fn",
     "combine_logits_and_image", "pad_to_bucket", "default_crop_floor",
+    "ship_partition",
 ]
 
 # Copies of gnn_tumor_seg_tpu/train/cnn_trainer.py's crop padding (that
@@ -78,16 +83,33 @@ def default_crop_floor() -> tuple[int, int, int] | None:
     return DEFAULT_CROP_FLOOR
 
 
-def resolve_slic_fn(impl: str):
-    """Map a --slic_impl choice to a slic_fn for build_graph_sample. The
-    device SLIC ('tpu', gnn_tumor_seg_tpu/ops/slic_tpu.py) is not ported."""
+def resolve_slic_fn(impl: str, device="cuda"):
+    """Map a --slic_impl choice to a slic_fn for build_graph_sample.
+
+    auto/native/numpy run the host canonical (data/slic.py); 'tpu' (the JAX
+    package's name for its device SLIC) smooths and assigns on `device`, the
+    card unless the caller asks for the CPU (ops/slic_device.py). Under
+    "fast" precision that route rounds the standardized volume to bfloat16
+    before the upload, as the JAX package does; the arithmetic stays
+    float32."""
     if impl == "auto":
         return None
     if impl in ("native", "numpy"):
         from ..data.slic import slic_supervoxels
 
         return partial(slic_supervoxels, use_native=(impl == "native"))
-    raise ValueError(f"unknown or unported slic impl {impl!r}")
+    if impl == "tpu":
+        from ..ops.slic_device import slic_supervoxels_device
+
+        dev = resolve_device(device)
+
+        def device_slic(image, **kw):
+            if fast_precision() and "input_dtype" not in kw:
+                kw["input_dtype"] = torch.bfloat16
+            return slic_supervoxels_device(image, device=dev, **kw)
+
+        return device_slic
+    raise ValueError(f"unknown slic impl {impl!r}")
 
 
 def load_gnn_from_checkpoint(weight_file: str, device="cuda"):
@@ -173,16 +195,38 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def ship_partition(sv_partition: np.ndarray, n_nodes: int,
+                   device: torch.device) -> torch.Tensor:
+    """Start the copy of a supervoxel partition to `device` (pinned,
+    non_blocking), as int16 when the ids fit (half the bytes), so it streams
+    while the host works on (JAX: pad_and_ship_partition, without its pad
+    to the fixed serve shape)."""
+    dtype = (np.int16 if n_nodes < np.iinfo(np.int16).max
+             else sv_partition.dtype)
+    t = torch.from_numpy(np.ascontiguousarray(sv_partition.astype(dtype, copy=False)))
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
 def predict_one_sample_device(gnn_forward, cnn_forward, graph,
-                              img: np.ndarray, sv_partition: np.ndarray,
-                              stage_times: dict | None = None) -> np.ndarray:
+                              img: np.ndarray | None, sv_partition: np.ndarray,
+                              stage_times: dict | None = None, vol_t=None,
+                              sv_raw_dev=None, sv_remap=None) -> np.ndarray:
     """Joint chain with the GNN logits kept on the card (same output as
     `predict_one_sample`). The host uploads the int16 supervoxel partition
     and the 4-channel image (bf16 under "fast"); voxel gather, argmax,
     cross dilation and the per-axis tumor masks run on the card; the host
     pulls three small axis masks to choose the crop, and three index_selects
     on the card build the CNN input. Returns int16 labels in training id
-    space."""
+    space.
+
+    From the device preprocessing chain: vol_t, the standardized volume
+    [C, X, Y, Z] on the card, gives the image channels (`img` is then
+    unused); sv_raw_dev, the raw partition already on the card, is read
+    through sv_remap (raw supervoxel id -> node id, -1 = discarded
+    background) applied on the card. -1 in either partition maps to the
+    appended background row explicitly."""
     rec = time.perf_counter
     t0 = rec()
     node_logits = gnn_forward(graph)[0].float()              # [Nmax, C]
@@ -190,8 +234,13 @@ def predict_one_sample_device(gnn_forward, cnn_forward, graph,
     n_max = node_logits.shape[0]
     bg = torch.from_numpy(_background_row(node_logits.shape[-1])).to(dev)
     table = torch.cat([node_logits, bg], 0)                  # [Nmax+1, C]
-    sv = torch.from_numpy(sv_partition.astype(np.int16, copy=False)).to(dev)
-    idx = torch.where(sv < 0, n_max, sv.long())
+    if sv_raw_dev is not None:
+        remap = torch.from_numpy(np.asarray(sv_remap, np.int64)).to(dev)
+        table = torch.cat([table[torch.where(remap < 0, n_max, remap)], bg], 0)
+        sv = sv_raw_dev
+    else:
+        sv = ship_partition(sv_partition, int(graph.n_nodes[0]), dev)
+    idx = torch.where(sv < 0, table.shape[0] - 1, sv.long())
     vox = table[idx]                                         # [X, Y, Z, C]
     mx, my, mz = (m.cpu().numpy() for m in
                   _dilated_axis_masks(vox.argmax(-1) != 0))
@@ -201,10 +250,13 @@ def predict_one_sample_device(gnn_forward, cnn_forward, graph,
     iy, ny, ry = _axis_indices(my, _CROP_BUCKET, floor=fl[1])
     iz, nz, rz = _axis_indices(mz, _CROP_BUCKET, floor=fl[2])
     cd = compute_dtype()
-    # under "fast" the image goes up as bf16, as the JAX package ships it
-    img_up = torch.from_numpy(np.ascontiguousarray(img, np.float32))
-    img_up = img_up.to(cd).to(dev).float()
-    x = torch.cat([img_up, vox], -1)
+    if vol_t is not None:
+        img_dev = vol_t.permute(1, 2, 3, 0)
+    else:
+        # under "fast" the image goes up as bf16, as the JAX package ships it
+        img_dev = torch.from_numpy(np.ascontiguousarray(img, np.float32))
+        img_dev = img_dev.to(cd).to(dev).float()
+    x = torch.cat([img_dev, vox], -1)
     x = x.index_select(0, torch.from_numpy(ix).to(dev))
     x = x.index_select(1, torch.from_numpy(iy).to(dev))
     x = x.index_select(2, torch.from_numpy(iz).to(dev)).to(cd)

@@ -1,13 +1,13 @@
 """CLI: preprocess a BraTS-style dataset into graph samples (counterpart of
-gnn_tumor_seg_tpu/cli/preprocess.py, its host path).
+gnn_tumor_seg_tpu/cli/preprocess.py).
 
 Argument contract mirrors `scripts/preprocess_dataset.py:172-187`, as the JAX
-package's CLI does. Preprocessing runs on the host alone, so there is no
---device; `--slic_impl tpu` and `--prep_impl device` need the device
-preprocessing chain, which is not ported (ROADMAP.md §1, item 3), and are
-refused.
+package's CLI does. The host path needs no card; `--slic_impl tpu` (SLIC on
+the card) and `--prep_impl device` (normalization, smoothing and SLIC as one
+chain on the card, ops/slic_device.py) run on --device, the card unless
+asked for the CPU.
 Run: python -m gnn_tumor_seg_tpu_torch.cli.preprocess -d <raw> -o <out>
-     [-l _seg.nii.gz] [--weighted]
+     [-l _seg.nii.gz] [--weighted] [--prep_impl device] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -48,22 +48,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--slic_impl", default="auto",
                    choices=("auto", "native", "numpy", "tpu"),
                    help="supervoxelization backend: host canonical "
-                        "(auto/native/numpy); 'tpu' (device SLIC) is not "
-                        "ported")
+                        "(auto/native/numpy) or 'tpu' (the JAX package's "
+                        "name), smoothing and assignment on the card. For "
+                        "bulk preprocessing see also --prep_impl")
     p.add_argument("--prep_impl", default="auto",
                    choices=("auto", "host", "device"),
-                   help="where normalization and SLIC run; 'device' (the "
-                        "JAX package's device chain) is not ported")
+                   help="'device' runs normalize+standardize+smooth+SLIC as "
+                        "one chain on the card per sample, with the host's "
+                        "stats/kNN/writes overlapping across the thread "
+                        "pool; 'auto' = device when --slic_impl tpu")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where --slic_impl tpu and --prep_impl device run; "
+                        "'cpu' runs them with PyTorch on the CPU")
     return p
 
 
 def main(argv=None) -> None:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    if args.slic_impl == "tpu" or args.prep_impl == "device":
-        parser.error("--slic_impl tpu and --prep_impl device need the device "
-                     "preprocess chain (gnn_tumor_seg_tpu/ops/slic_tpu.py), "
-                     "which the port does not have yet (ROADMAP.md)")
+    args = build_parser().parse_args(argv)
+    prep_impl = args.prep_impl
+    if prep_impl == "auto":
+        prep_impl = "device" if args.slic_impl == "tpu" else "host"
     pre = DataPreprocessor(
         data_dir=args.data_dir,
         output_dir=args.output_dir,
@@ -76,7 +80,9 @@ def main(argv=None) -> None:
         save_json=args.save_json,
         n_threads=args.threads,
         weighted=args.weighted,
-        slic_fn=resolve_slic_fn(args.slic_impl),
+        slic_fn=resolve_slic_fn(args.slic_impl, device=args.device),
+        prep_impl=prep_impl,
+        device=args.device,
     )
     pre.run()
     print(f"Finished preprocessing data from {args.data_dir}.")

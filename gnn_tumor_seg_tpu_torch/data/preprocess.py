@@ -1,5 +1,5 @@
 """Dataset preprocessing: raw BraTS MRI folders -> preprocessed samples
-(copy of the host path of gnn_tumor_seg_tpu/data/preprocess.py).
+(counterpart of gnn_tumor_seg_tpu/data/preprocess.py).
 
 Capability match for `scripts/preprocess_dataset.py` (DataPreprocessor): discover
 MRI folders, standardize images (0.995-quantile normalize + dataset mean/std),
@@ -12,9 +12,14 @@ Artifacts per sample (reference names + the native binary graph):
   <id>_input.nii.gz  <id>_label.nii.gz  <id>_supervoxels.nii.gz  <id>_crop.npy
   <id>_graph.npz  <id>_meta.json  [optional: <id>_nxgraph.json for reference interop]
 
-Only prep_impl="host" is ported: the device chain of the JAX package
-(prep_impl="device", ops/slic_tpu.py) is ROADMAP.md §1 item 3, and asking
-for it raises NotImplementedError.
+prep_impl="device" runs each sample's normalization quantile,
+standardization, smoothing and SLIC assignment as one chain on the card
+(ops/slic_device.serve_preprocess_device, the serve path's chain); the host
+computes the graph features from the raw crop through the equivalent
+affine map and writes the standardized volume with the chain's q, bitwise
+the host path's. One chain runs at a time under a lock, so the pool's
+threads overlap the connectivity, statistics and NIfTI writes of one sample
+with the chain of the next.
 """
 
 from __future__ import annotations
@@ -23,12 +28,13 @@ import concurrent.futures
 import glob
 import json
 import os
+import threading
 
 import numpy as np
 
-from ..runtime import enable_host_alloc_reuse
+from ..runtime import enable_host_alloc_reuse, resolve_device
 from . import nifti, store
-from .graph_build import build_graph_sample
+from .graph_build import build_graph_sample, sample_from_partition
 from .image import (_fast_quantile_per_channel, determine_brain_crop,
                     normalize_img, swap_labels_from_brats)
 
@@ -52,14 +58,15 @@ class DataPreprocessor:
                  standardization_stats=STANDARDIZATION_STATS,
                  save_json: bool = False, n_threads: int = N_THREADS,
                  slic_fn=None, weighted: bool = False,
-                 prep_impl: str = "host"):
-        if prep_impl == "device":
-            raise NotImplementedError(
-                "prep_impl='device' needs the device preprocessing chain "
-                "(gnn_tumor_seg_tpu/ops/slic_tpu.py), which is not ported "
-                "(ROADMAP.md §1, item 3); use prep_impl='host'")
-        if prep_impl != "host":
-            raise ValueError(f"unknown prep_impl {prep_impl!r}; expected 'host'")
+                 prep_impl: str = "host", device="cuda"):
+        """device: where prep_impl='device' runs its chain, the card unless
+        the caller asks for the CPU; the host path never reads it."""
+        if prep_impl not in ("host", "device"):
+            raise ValueError(f"unknown prep_impl {prep_impl!r}; expected "
+                             "'host' or 'device'")
+        self.prep_impl = prep_impl
+        self.device = resolve_device(device) if prep_impl == "device" else None
+        self._device_lock = threading.Lock()
         self.num_nodes = num_nodes
         self.num_neighbors = num_neighbors or None   # 0 -> contiguity mode
         self.boxiness = boxiness
@@ -138,14 +145,57 @@ class DataPreprocessor:
         cropped /= self.dataset_std
         return cropped, labels, crop, image.shape[:3]
 
-    def process_one(self, mri_id: str) -> str:
-        image, labels, crop, orig_shape = self.get_standardized_image(
+    def get_raw_cropped(self, scan_dir: str):
+        """Raw (pre-normalization) cropped volume and labels, for the device
+        preprocessing path."""
+        image = nifti.read_in_patient_sample(scan_dir, self.modality_extensions)
+        crop = determine_brain_crop(image)
+        cropped = np.ascontiguousarray(image[crop])
+        labels = None
+        if self.include_labels:
+            raw_labels = nifti.read_in_labels(scan_dir, self.label_extension)
+            labels = swap_labels_from_brats(raw_labels[crop])
+        return cropped, labels, crop, image.shape[:3]
+
+    def _process_one_device(self, mri_id: str):
+        """prep_impl='device': the normalization quantile, standardization,
+        smoothing and SLIC assignment as one chain on the card, from one
+        upload of the raw crop. The chain holds the lock (one in flight: each
+        holds several volumes on the card); the host then computes the graph
+        from the raw crop through the positive affine of the chain's q and
+        standardizes the artifact in place in the host path's operation
+        order ((x / q - mean) / std), so it is bitwise the host path's."""
+        from ..ops.slic_device import finalize_labels, serve_preprocess_device
+
+        raw, labels, crop, orig_shape = self.get_raw_cropped(
             self.id_to_fp[mri_id])
-        sample = build_graph_sample(
-            image, labels, self.num_nodes, self.boxiness,
-            self.num_neighbors, slic_fn=self.slic_fn,
-            weighted=self.weighted,
-        )
+        with self._device_lock:
+            labels_raw, _, q, step = serve_preprocess_device(
+                raw, self.num_nodes, self.boxiness, self.dataset_mean,
+                self.dataset_std, sigma=1.0, device=self.device)
+        sv = finalize_labels(labels_raw, step)
+        a = (1.0 / (q * self.dataset_std)).astype(np.float32)
+        b = (-self.dataset_mean / self.dataset_std).astype(np.float32)
+        sample = sample_from_partition(raw, labels, sv, self.num_neighbors,
+                                       weighted=self.weighted,
+                                       feat_affine=(a, b))
+        raw /= q
+        raw -= self.dataset_mean
+        raw /= self.dataset_std
+        return raw, labels, crop, orig_shape, sample
+
+    def process_one(self, mri_id: str) -> str:
+        if self.prep_impl == "device":
+            image, labels, crop, orig_shape, sample = \
+                self._process_one_device(mri_id)
+        else:
+            image, labels, crop, orig_shape = self.get_standardized_image(
+                self.id_to_fp[mri_id])
+            sample = build_graph_sample(
+                image, labels, self.num_nodes, self.boxiness,
+                self.num_neighbors, slic_fn=self.slic_fn,
+                weighted=self.weighted,
+            )
         out = os.path.join(self.output_dir, mri_id)
         os.makedirs(out, exist_ok=True)
         pre = os.path.join(out, mri_id)

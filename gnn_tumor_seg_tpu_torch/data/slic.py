@@ -12,9 +12,10 @@ color+space) in a *blockwise 27-candidate* formulation:
 
 This formulation is chosen because it is *identical* in numpy (here, the host
 canonical implementation), in the C++ kernels of native/gts_native.cc and in
-the JAX package's device version (gnn_tumor_seg_tpu/ops/slic_tpu.py, not yet
-ported) — fixed candidate count, fixed shapes, masked reductions — so parity
-between them is directly testable, unlike a data-dependent priority queue.
+the device version (ops/slic_device.py; the JAX package's is
+gnn_tumor_seg_tpu/ops/slic_tpu.py) — fixed candidate count, fixed shapes,
+masked reductions — so parity between them is directly testable, unlike a
+data-dependent priority queue.
 
 A copy of gnn_tumor_seg_tpu/data/slic.py: the port imports nothing of the JAX
 package, and its partitions must equal the JAX package's.

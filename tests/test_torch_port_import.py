@@ -63,6 +63,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         "gnn_tumor_seg_tpu_torch.cli.predict_single",
         "gnn_tumor_seg_tpu_torch.cli.train_gnn",
         "gnn_tumor_seg_tpu_torch.cli.preprocess",
+        "gnn_tumor_seg_tpu_torch.cli.warmup",
+        "gnn_tumor_seg_tpu_torch.ops.slic_device",
         "gnn_tumor_seg_tpu_torch.data.preprocess",
         "gnn_tumor_seg_tpu_torch.ops.sddmm",
         "gnn_tumor_seg_tpu_torch.ops.kernels.slot_gather",

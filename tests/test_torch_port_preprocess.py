@@ -1,5 +1,5 @@
 """Dataset preprocessing: the port's cli.preprocess against the JAX
-package's, and the refusals of what the port does not have.
+package's, and its device preprocessing flags.
 
 Two synthetic labelled brains of 64x60x48 voxels (four int16 modalities and
 a BraTS label volume) go through both CLIs with `-n 400 --weighted`. Both
@@ -113,12 +113,35 @@ def test_weighted_store_trains_on_the_cpu(stores, tmp_path):
 
 @pytest.mark.parametrize("flags", [["--slic_impl", "tpu"],
                                    ["--prep_impl", "device"]])
-def test_cli_refuses_device_preprocessing(tmp_path, flags, capsys):
-    with pytest.raises(SystemExit):
-        port_cli.main(["-d", str(tmp_path), "-o", str(tmp_path / "out"), *flags])
-    assert "not have yet" in capsys.readouterr().err
+def test_cli_refuses_device_preprocessing(stores, tmp_path, flags):
+    """The device preprocessing flags, refused before the chain was ported,
+    now run on the two brains (--slic_impl tpu implies --prep_impl device):
+    every sample's standardized input is bitwise the host path's, and its
+    graph carries the edge weights of --weighted
+    (tests/test_torch_port_slic_device.py compares the partitions)."""
+    port_cli.main(["-d", str(stores / "raw"), "-o", str(tmp_path), "-n", "400",
+                   "-k", "10", "-l", "_seg.nii.gz", "--weighted", "--threads",
+                   "2", "--device", "cpu", *flags])
+    ids = sorted(os.listdir(tmp_path))
+    assert ids == ["BraTS_000", "BraTS_001"]
+    for mri_id in ids:
+        got, host = tmp_path / mri_id, stores / "port" / mri_id
+        assert sorted(os.listdir(got)) == sorted(os.listdir(host))
+        for suffix in ("_input.nii.gz", "_label.nii.gz"):
+            np.testing.assert_array_equal(
+                nifti.read_nifti(str(got / f"{mri_id}{suffix}")),
+                nifti.read_nifti(str(host / f"{mri_id}{suffix}")), err_msg=suffix)
+        with np.load(got / f"{mri_id}_graph.npz") as z:
+            w = z["edge_weights"]
+            assert len(w) == len(z["src"]) > 0 and (w > 0).all() and (w <= 1).all()
+            assert len(z["feats"]) > 0 and bool(np.isfinite(z["feats"]).all())
 
 
 def test_device_prep_impl_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 3"):
-        DataPreprocessor(str(tmp_path), str(tmp_path / "out"), prep_impl="device")
+    """prep_impl='device' builds (on the CPU when asked); an unknown
+    prep_impl still raises."""
+    pre = DataPreprocessor(str(tmp_path), str(tmp_path / "out"),
+                           prep_impl="device", device="cpu")
+    assert pre.prep_impl == "device" and pre.device.type == "cpu"
+    with pytest.raises(ValueError, match="unknown prep_impl"):
+        DataPreprocessor(str(tmp_path), str(tmp_path / "out"), prep_impl="gpu")
