@@ -126,7 +126,23 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    weighted embedding_bag's forward, its weight backward and its
    per-sample-weight backward; for slot_gather and slot_gather_bwd
    F.embedding and its backward) and byte bound; slot_gather at every width
-   of phase 3.
+   of phase 3;
+8. the pipeline, the cell pipeline-2mri: the four steps of
+   scripts/run_pipeline_cuda.sh as a user runs them (each CLI's main) on
+   phase 6's two brains preprocessed with cli.preprocess: cli.train_gnn -m
+   GSpool -k 1 ([256]*6, 2 epochs), cli.generate_gnn_predictions -f logits
+   and once -f preds, cli.train_refinement_cnn -k 1 (the hardcoded CNN,
+   3 epochs, the later ones from the prep cache) and
+   cli.generate_joint_predictions --precision exact, then fast. Every step
+   writes its files (labels 240x240x155 in {0,1,2,4}, finite logits), the
+   kernel counts of each step are what GSpool needs (7 max_agg a brain or
+   step and evaluation batch, 7 max_agg_bwd a step; none in the CNN step),
+   the prep cache is hit by each brain from epoch 2 on and by the
+   evaluation. Then one exact CNN step at 48^3 on the card against the
+   same step on the CPU, two exact epochs from one seed compared bitwise,
+   the CNN step at the floored crop timed (exact, fast, exact with
+   cudnn.deterministic, and both with cudnn.benchmark; CUDA events) with
+   its achieved TFLOP/s, and a cached fast and exact epoch profiled.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; before it, one JSON line lists the kernels. The last line is
@@ -2531,6 +2547,314 @@ def per_step(rows, parts, dtype="float32") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the four-step pipeline
+# ---------------------------------------------------------------------------
+
+PIPE_GNN_EPOCHS = 2
+PIPE_CNN_EPOCHS = 3
+CNN_CHECK_CROP = 48
+# one exact CNN step on the card against the same step on the CPU: float32
+# convolutions of 125 x C taps, summed over the crop in another order
+CNN_LOSS_RTOL = 1e-5
+CNN_GRAD_TOL = 1e-4      # of each gradient's largest entry
+CNN_PARAM_ATOL = 1e-6    # after AdamW's first step (each entry moves ~lr)
+CNN_STEP_REPS = 10
+
+
+def _cli_step(name, fn, argv, walls) -> dict:
+    """One CLI step as a user runs it (its main(argv)), with every kernel
+    count set to 0 just before it and read just after; records its wall
+    time."""
+    read = _reset_counts()
+    t = time.perf_counter()
+    fn(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    walls[name] = time.perf_counter() - t
+    return read()
+
+
+def _check_labels(d, ids, shape, what):
+    from gnn_tumor_seg_tpu_torch.data import nifti
+
+    for mri_id in ids:
+        pred = nifti.read_nifti(os.path.join(d, f"{mri_id}.nii.gz"), np.int16)
+        check(pred.shape == tuple(shape), f"{what} {mri_id}: shape {pred.shape}")
+        vals = set(np.unique(pred).tolist())
+        check(vals <= {0, 1, 2, 4}, f"{what} {mri_id}: labels {sorted(vals)}")
+
+
+def _jsonl(path) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def cnn_macs_per_voxel(hp) -> int:
+    """Multiply-adds per voxel of one CNN training step, from the layer
+    widths: the forward of both convolutions, then conv1's input and weight
+    gradients and conv0's weight gradient (conv0's input needs none)."""
+    c0, c1, c2 = hp.in_feats, hp.layer_sizes[0], hp.out_classes
+    taps = 5 ** 3
+    return taps * (c0 * c1 + c1 * c2) + taps * (2 * c1 * c2 + c0 * c1)
+
+
+def cnn_step_matches_cpu(card, device="cuda") -> dict:
+    """One exact CNN training step at a CNN_CHECK_CROP^3 crop (floor off)
+    on the card against the same step on the CPU, from the same parameters
+    and inputs: loss within CNN_LOSS_RTOL, gradients within CNN_GRAD_TOL of
+    each tensor's largest entry, parameters after AdamW within
+    CNN_PARAM_ATOL."""
+    from gnn_tumor_seg_tpu_torch.config import hardcoded_hyperparameters
+    from gnn_tumor_seg_tpu_torch.train.cnn_trainer import CNNTrainer, PreparedSample
+
+    hp = hardcoded_hyperparameters("CNN")
+    rng = np.random.default_rng(SEED)
+    n = CNN_CHECK_CROP
+    x = rng.normal(size=(1, n, n, n, hp.in_feats)).astype(np.float32)
+    lab = rng.integers(0, 4, (1, n, n, n)).astype(np.int32)
+    lab[:, n - 6:] = -1                               # padding rows
+    mask = (lab >= 0).astype(np.float32)
+    crop = np.ix_(np.arange(n - 6), np.arange(n), np.arange(n))
+    out = {}
+    for dev in (device, "cpu"):
+        t = CNNTrainer(hp, seed=SEED, crop_floor=None, precision="exact",
+                       device=dev)
+        prep = PreparedSample(*(torch.from_numpy(a).to(dev) for a in (x, lab, mask)),
+                              crop=crop)
+        with t.compute_scope():
+            loss = t._step(prep)
+        out[dev] = (float(loss), [p.grad.detach().cpu() for p in t.net.jax_parameters()],
+                    [p.detach().cpu() for p in t.net.jax_parameters()])
+    (lc, gc, pc), (lh, gh, ph) = out[device], out["cpu"]
+    loss_rel = abs(lc - lh) / abs(lh)
+    grad_rel = max(within(a, b) for a, b in zip(gc, gh))
+    param_abs = max(float((a - b).abs().max()) for a, b in zip(pc, ph))
+    check(loss_rel <= CNN_LOSS_RTOL and grad_rel <= CNN_GRAD_TOL
+          and param_abs <= CNN_PARAM_ATOL,
+          f"exact CNN step on {device} against the CPU: loss {loss_rel:.3g} "
+          f"relative, gradients {grad_rel:.3g} of their largest entry, "
+          f"parameters {param_abs:.3g}")
+    log(f"[pipeline] exact CNN step at {n}^3 on {device} against the CPU: loss "
+        f"{lc:.7f} vs {lh:.7f} ({loss_rel:.3g} relative, tolerance "
+        f"{CNN_LOSS_RTOL}), gradients within {grad_rel:.3g} of their largest "
+        f"entry ({CNN_GRAD_TOL}), parameters within {param_abs:.3g} "
+        f"({CNN_PARAM_ATOL}); card: {card}")
+    return {"loss_rel": loss_rel, "grad_rel": grad_rel, "param_abs": param_abs}
+
+
+def time_cnn_step(trainer, prep, reps: int = CNN_STEP_REPS) -> dict:
+    """Median ms of one CNN training step (forward, loss, backward, AdamW)
+    on a prepared sample, under the trainer's precision and cuDNN settings:
+    CUDA events around each step, after 2 warm-up steps; and the first
+    step's wall seconds (cuDNN times its algorithms for a new shape)."""
+    times = []
+    with trainer.compute_scope():
+        for i in range(reps + 2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            start.record()
+            trainer._step(prep)
+            end.record()
+            end.synchronize()
+            if i == 0:
+                first_s = time.perf_counter() - t
+            if i >= 2:
+                times.append(start.elapsed_time(end))
+    return {"ms": statistics.median(times), "first_s": first_s,
+            "ms_all": [round(v, 4) for v in times]}
+
+
+def profile_cnn_epoch(trainer) -> dict:
+    """One epoch under torch.profiler: its wall time, the device's busy time
+    and idle share, and the top device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.run_epoch()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    on_device = device_events(prof)
+    busy_ms = sum(_device_us(e) for e in on_device) / 1e3
+    check(busy_ms > 0, "the profiler saw no device time in a CNN epoch")
+    top = [[e.key[:60], round(_device_us(e) / 1e3, 4), e.count]
+           for e in on_device[:8]]
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms, "top": top}
+
+
+def phase_pipeline(tmp: str, card: str, device="cuda", num_nodes=NUM_NODES) -> dict:
+    """The four steps of scripts/run_pipeline_cuda.sh as a user runs them,
+    through each CLI's main, on phase 6's two full-size brains preprocessed
+    with cli.preprocess: cli.train_gnn -m GSpool -k 1 at TRAIN_WIDTHS
+    (PIPE_GNN_EPOCHS epochs), cli.generate_gnn_predictions -f logits and
+    once -f preds, cli.train_refinement_cnn -k 1 with the hardcoded CNN
+    (PIPE_CNN_EPOCHS epochs, the later ones from the prep cache), and
+    cli.generate_joint_predictions --precision exact, then fast. Every step
+    writes its files, label volumes are BRAIN_SHAPE in BraTS labels, logits
+    are finite, the prep cache is hit by every brain from epoch 2 on and by
+    the evaluation, and the GNN steps launch max_agg (and training
+    max_agg_bwd) as the model needs. On the card, the CNN's exact step is
+    held to the CPU's, two exact epochs from one seed must be bitwise
+    equal, and the CNN step (at the 128^3 floor and at a brain's crop) and
+    a cached epoch are timed and profiled."""
+    from gnn_tumor_seg_tpu_torch.cli import (generate_gnn_predictions,
+                                             generate_joint_predictions,
+                                             preprocess, train_gnn,
+                                             train_refinement_cnn)
+    from gnn_tumor_seg_tpu_torch.config import hardcoded_hyperparameters
+    from gnn_tumor_seg_tpu_torch.data import nifti
+    from gnn_tumor_seg_tpu_torch.data.dataset import (ImageGraphDataset,
+                                                      PredLogitDataset)
+    from gnn_tumor_seg_tpu_torch.train.cnn_trainer import (DEFAULT_CROP_FLOOR,
+                                                           CNNTrainer, PreparedSample)
+
+    raw = os.path.join(tmp, "raw")
+    root = os.path.join(tmp, "pipeline")
+    store, logs = os.path.join(root, "store"), os.path.join(root, "logs")
+    logit_dir = os.path.join(root, "logits")
+    walls: dict = {}
+    shape = nifti.read_nifti(os.path.join(raw, "BraTS_000", "BraTS_000_seg.nii.gz")).shape
+    t = time.perf_counter()
+    preprocess.main(["-d", raw, "-o", store, "-n", str(num_nodes), "-k", "10",
+                     "-l", "_seg.nii.gz"])
+    walls["preprocess"] = time.perf_counter() - t
+    ids = sorted(os.listdir(store))
+    n = len(ids)
+    dev = ["--device", device]
+    layers = len(TRAIN_WIDTHS) + 1
+    on_card = device == "cuda"
+    launches = {}
+
+    def want(**kw):
+        return {**NO_LAUNCHES, **(kw if on_card else {})}
+
+    # step 1: train the GNN
+    launches["train_gnn"] = _cli_step("train_gnn", train_gnn.main, [
+        "-d", store, "-o", logs, "-r", "pipe_gnn", "-m", "GSpool", "-k", "1",
+        "--hp", f"layer_sizes={TRAIN_WIDTHS}", "--hp", f"n_epochs={PIPE_GNN_EPOCHS}",
+        *dev], walls)
+    gnn_ckpt = os.path.join(logs, "pipe_gnn_f1.ckpt")
+    check(os.path.exists(gnn_ckpt), "step 1 wrote no GNN checkpoint")
+    steps = sum(e["steps"] for e in _jsonl(os.path.join(logs, "pipe_gnn.txt.jsonl"))
+                if e.get("event") == "epoch")
+    check(launches["train_gnn"] == want(max_agg=layers * (steps + 1),
+                                        max_agg_bwd=layers * steps),
+          f"step 1 launches {launches['train_gnn']} for {steps} steps")
+    # step 2: GNN logits, and once the GNN's own labels
+    launches["gnn_logits"] = _cli_step(
+        "gnn_logits", generate_gnn_predictions.main,
+        ["-d", store, "-o", logit_dir, "-w", gnn_ckpt, "-f", "logits", *dev], walls)
+    launches["gnn_preds"] = _cli_step(
+        "gnn_preds", generate_gnn_predictions.main,
+        ["-d", store, "-o", os.path.join(root, "gnn_preds"), "-w", gnn_ckpt,
+         "-f", "preds", *dev], walls)
+    for k in ("gnn_logits", "gnn_preds"):
+        check(launches[k] == want(max_agg=layers * n), f"{k} launches {launches[k]}")
+    logits = PredLogitDataset(logit_dir)
+    for mri_id in ids:
+        v = logits.read_logits(mri_id)
+        check(v.ndim == 4 and v.shape[-1] == 4 and bool(np.isfinite(v).all()),
+              f"{mri_id}: logits {v.shape}, finite {bool(np.isfinite(v).all())}")
+    _check_labels(os.path.join(root, "gnn_preds"), ids, shape, "GNN labels")
+    # step 3: train the refinement CNN
+    launches["train_cnn"] = _cli_step("train_cnn", train_refinement_cnn.main, [
+        "-d", store, "-l", logit_dir, "-o", logs, "-r", "pipe_cnn", "-k", "1",
+        "--hp", f"n_epochs={PIPE_CNN_EPOCHS}", *dev], walls)
+    check(launches["train_cnn"] == NO_LAUNCHES, f"step 3 launches {launches['train_cnn']}")
+    cnn_ckpt = os.path.join(logs, "pipe_cnn_f1.ckpt")
+    check(os.path.exists(cnn_ckpt), "step 3 wrote no CNN checkpoint")
+    records = _jsonl(os.path.join(logs, "pipe_cnn.txt.jsonl"))
+    epochs = [r for r in records if r.get("event") == "epoch"]
+    evals = [r for r in records if r.get("event") == "evaluate"]
+    hits = [e["prep_cache_hits"] for e in epochs]
+    check(len(epochs) >= 2 and hits == [0] + [n] * (len(epochs) - 1)
+          and len(evals) == 1 and evals[0]["prep_cache_hits"] == n,
+          f"prep cache hits: epochs {hits}, evaluation "
+          f"{[r['prep_cache_hits'] for r in evals]}, for {n} brains")
+    check(all(np.isfinite(e["loss"]) for e in epochs), "non-finite CNN losses")
+    # step 4: joint predictions, exact then fast
+    joint = {}
+    for mode in ("exact", "fast"):
+        out = os.path.join(root, f"joint_{mode}")
+        key = f"joint_{mode}"
+        launches[key] = _cli_step(key, generate_joint_predictions.main, [
+            "-d", store, "-o", out, "-g", gnn_ckpt, "-c", cnn_ckpt,
+            "--precision", mode, *dev], walls)
+        check(launches[key] == want(max_agg=layers * n), f"{key} launches {launches[key]}")
+        _check_labels(out, ids, shape, f"joint labels ({mode})")
+        joint[mode] = walls[key] / n
+    totals = {k: sum(c[k] for c in launches.values()) for k in NO_LAUNCHES}
+    if on_card:
+        check(totals["max_agg"] > 0 and totals["max_agg_bwd"] > 0,
+              f"pipeline launches {totals}")
+    result = {"brains": n, "walls_s": walls, "joint_s_per_brain": joint,
+              "cnn_epochs_s": [e["seconds"] for e in epochs],
+              "cnn_losses": [e["loss"] for e in epochs],
+              "prep_cache_hits": {"epochs": hits,
+                                  "evaluate": evals[0]["prep_cache_hits"]},
+              "launches": totals}
+    log(f"[pipeline] {n} brains {shape}: step walls (s) "
+        f"{json.dumps({k: round(v, 3) for k, v in walls.items()})}, launches "
+        f"{json.dumps({k: {kk: vv for kk, vv in c.items() if vv} for k, c in launches.items()})}; "
+        f"card: {card}")
+    if not on_card:
+        return result
+    # the CNN on the card: its exact step against the CPU's, determinism,
+    # step and epoch time
+    hp = hardcoded_hyperparameters("CNN")
+    result["cpu_check"] = cnn_step_matches_cpu(card, device)
+    images = ImageGraphDataset(store, read_graph=False)
+    ta = CNNTrainer(hp, images, logits, seed=SEED, precision="exact", device=device)
+    ta.run_epoch()                                       # fills the prep cache
+    tb = CNNTrainer(hp, images, logits, seed=SEED, precision="exact", device=device)
+    tb._prep_cache = ta._prep_cache
+    tb.run_epoch()
+    diff = max(float((a - b).detach().abs().max()) for a, b in
+               zip(ta.net.jax_parameters(), tb.net.jax_parameters()))
+    check(diff == 0, f"two exact CNN epochs from one seed differ by {diff:.3g}")
+    result["exact_epochs_max_abs_diff"] = diff
+    # the CNN step at the floor (a 128^3 corner of the first brain's crop,
+    # a shape cuDNN has not seen) and at that brain's whole crop
+    full = ta._prep_cache.get((logits.root, ids[0]))
+    f = DEFAULT_CROP_FLOOR
+    corner = PreparedSample(full.x[:, :f[0], :f[1], :f[2]].contiguous(),
+                            full.labels[:, :f[0], :f[1], :f[2]].contiguous(),
+                            full.mask[:, :f[0], :f[1], :f[2]].contiguous(), full.crop)
+    tf = CNNTrainer(hp, images, logits, seed=SEED, precision="fast", device=device)
+    tf._prep_cache = ta._prep_cache
+    steps_ms, tflops, flop = {}, {}, {}
+    for name, prep in (("floor", corner), ("crop", full)):
+        flop[name] = 2 * cnn_macs_per_voxel(hp) * int(np.prod(prep.x.shape[1:4]))
+        for t in (ta, tf):
+            key = f"{t.precision}_{name}"
+            steps_ms[key] = time_cnn_step(t, prep)
+            tflops[key] = flop[name] / (steps_ms[key]["ms"] * 1e-3) / 1e12
+    profiles = {"fast": profile_cnn_epoch(tf), "exact": profile_cnn_epoch(ta)}
+    result.update(crop=list(full.x.shape[1:4]), step_flop=flop, step_ms=steps_ms,
+                  tflops=tflops, epoch_profile=profiles)
+    log("[pipeline] " + json.dumps({
+        "brains": n, "step_wall_s": {k: round(v, 3) for k, v in walls.items()},
+        "joint_s_per_brain": joint,
+        "cnn_crop": result["crop"], "cnn_step_flop": flop,
+        "cnn_step_ms": {k: v["ms"] for k, v in steps_ms.items()},
+        "cnn_first_step_s": {k: v["first_s"] for k, v in steps_ms.items()},
+        "cnn_step_tflops": tflops,
+        "cli_cnn_epoch_s": result["cnn_epochs_s"],
+        "prep_cache_hits": result["prep_cache_hits"],
+        "cnn_epoch_idle_share": {k: v["idle_share"] for k, v in profiles.items()},
+        "cnn_epoch_busy_ms": {k: v["busy_ms"] for k, v in profiles.items()},
+        "cnn_epoch_wall_ms": {k: v["wall_ms"] for k, v in profiles.items()},
+        "exact_epochs_max_abs_diff": diff,
+        "cpu_check": result["cpu_check"],
+        "launches": totals, "card": card}))
+    for mode, p in profiles.items():
+        log(f"[pipeline] cached {mode} CNN epoch top kernels: {json.dumps(p['top'])}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run",
@@ -2585,7 +2909,9 @@ def main() -> int:
         dtime = phase_decomposed_timing(dataset, card)
         # last, so that the cells timed before it run as they did without it
         mean_step = time_train_steps(dataset, card, "GSmean")
-    done("phase 7")
+        done("phase 7")
+        pipe = phase_pipeline(tmp, card)
+    done("phase 8")
     paths = {"train": train["runs"], "preprocess_weighted": {"prep": prep["run"]},
              "train_weighted": weighted["runs"], "train_gat_attndrop": drop["runs"]}
     by_path = {path: {k: sum(r["counts"][k] for r in runs.values())
@@ -2609,10 +2935,11 @@ def main() -> int:
         "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/max_agg.cu",
         "replaces": "gnn_tumor_seg_tpu/ops/pallas/gather_agg.py:135",
         "launches": (serve["launches"] + deviceprep["launches"]["max_agg"]
-                     + train_launches["max_agg"]),
+                     + train_launches["max_agg"] + pipe["launches"]["max_agg"]),
         "launches_by_path": {"serve": serve["launches"],
                              "serve_deviceprep": deviceprep["launches"]["max_agg"],
-                             "train": train_launches["max_agg"]},
+                             "train": train_launches["max_agg"],
+                             "pipeline": pipe["launches"]["max_agg"]},
         "max_abs_err": worst,
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -2633,7 +2960,9 @@ def main() -> int:
         "route": "cuda",
         "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/max_agg.cu",
         "replaces": "gnn_tumor_seg_tpu/ops/pallas/gather_agg.py:200",
-        "launches": train_launches["max_agg_bwd"],
+        "launches": train_launches["max_agg_bwd"] + pipe["launches"]["max_agg_bwd"],
+        "launches_by_path": {"train": train_launches["max_agg_bwd"],
+                             "pipeline": pipe["launches"]["max_agg_bwd"]},
         "max_abs_err": train_worst["max_agg_bwd"],
         **gspool_step["max_agg_bwd"],
         "bound_by": "bytes",

@@ -9,17 +9,17 @@ reference does. The device variant also takes the device preprocessing
 chain's outputs (ops/slic_device.py): the standardized volume left on the
 card, whose channels it reads in place of an image upload, and the raw
 supervoxel partition shipped before the background discard was known, with
-the remap to node ids. The CNN crop is padded to the JAX package's bucket
-and floor (`_CROP_BUCKET`, `default_crop_floor`): edge-replicated rows are
-not the same as the conv's replicate padding near the crop face, so parity
-with the JAX package needs the same padding. The JAX package's fixed serve
+the remap to node ids. The CNN crop is padded as the CNN trainer pads it
+(train/cnn_trainer.py: `_CROP_BUCKET`, `default_crop_floor`, the JAX
+package's bucket and floor): edge-replicated rows are not the same as the
+conv's replicate padding near the crop face, so parity with the JAX
+package needs the same padding. The JAX package's fixed serve
 pad shape (`BRATS_RAW_SHAPE`) exists only to avoid XLA recompiles and pads
 with background, so the port does not pad.
 """
 
 from __future__ import annotations
 
-import os
 import time
 from functools import partial
 
@@ -30,6 +30,8 @@ from ..config import DEFAULT_BACKGROUND_NODE_LOGITS
 from ..ops.precision import compute_dtype, fast_precision
 from ..runtime import resolve_device
 from ..train.checkpoint import cnn_from_leaves, gnn_from_leaves, load_checkpoint
+from ..train.cnn_trainer import (_CROP_BUCKET, combine_logits_and_image,
+                                 default_crop_floor, pad_to_bucket)
 
 __all__ = [
     "load_gnn_from_checkpoint", "load_cnn_from_checkpoint",
@@ -38,49 +40,6 @@ __all__ = [
     "combine_logits_and_image", "pad_to_bucket", "default_crop_floor",
     "ship_partition",
 ]
-
-# Copies of gnn_tumor_seg_tpu/train/cnn_trainer.py's crop padding (that
-# module imports JAX): per-axis crop buckets of 16, floored at 128^3.
-_CROP_BUCKET = 16
-DEFAULT_CROP_FLOOR = (128, 128, 128)
-
-
-def combine_logits_and_image(gnn_logits: np.ndarray, img: np.ndarray,
-                             tumor_crop) -> np.ndarray:
-    """Concat [image(4ch), logits(4ch)] channels-last and crop -> [dx,dy,dz,8]
-    (`model/cnn_model.py:85-88`, channels-last instead of NCDHW)."""
-    combined = np.concatenate([img, gnn_logits], axis=-1)
-    return combined[tumor_crop]
-
-
-def pad_to_bucket(vol: np.ndarray, bucket: int = _CROP_BUCKET,
-                  floor: tuple[int, int, int] | None = None):
-    """Edge-replicate-pad the leading 3 spatial dims up to multiples of
-    `bucket`, and at least to `floor` when given. Returns
-    (padded, valid_mask[spatial])."""
-    spatial = vol.shape[:3]
-    target = tuple(-(-s // bucket) * bucket for s in spatial)
-    if floor is not None:
-        target = tuple(max(t, f) for t, f in zip(target, floor))
-    pads = [(0, t - s) for s, t in zip(spatial, target)]
-    if vol.ndim == 4:
-        pads.append((0, 0))
-    padded = np.pad(vol, pads, mode="edge")
-    mask = np.zeros(target, np.float32)
-    mask[: spatial[0], : spatial[1], : spatial[2]] = 1.0
-    return padded, mask
-
-
-def default_crop_floor() -> tuple[int, int, int] | None:
-    """CNN crop floor: DEFAULT_CROP_FLOOR unless overridden via
-    GTS_CNN_CROP_FLOOR ('X,Y,Z' or 'none'); the variable is shared with the
-    JAX package so one setting gives both the same crops."""
-    env = os.environ.get("GTS_CNN_CROP_FLOOR")
-    if env:
-        if env.strip().lower() in ("none", "0"):
-            return None
-        return tuple(int(v) for v in env.split(","))
-    return DEFAULT_CROP_FLOOR
 
 
 def resolve_slic_fn(impl: str, device="cuda"):

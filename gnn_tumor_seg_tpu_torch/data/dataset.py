@@ -1,6 +1,5 @@
-"""On-disk dataset over preprocessed sample directories (counterpart of
-gnn_tumor_seg_tpu/data/dataset.py's ImageGraphDataset; PredLogitDataset
-comes with the refinement-CNN training slice).
+"""On-disk datasets over preprocessed sample directories and saved GNN logits
+(counterpart of gnn_tumor_seg_tpu/data/dataset.py).
 
 Capability match for `data_processing/data_loader.py` (ImageGraphDataset)
 with the same artifact layout per sample directory
@@ -31,8 +30,9 @@ from ..ops.graph import (DEGREE_BUCKETS, NODE_BUCKETS, GraphBatch, bucket_size,
                          graph_from_arrays)
 from . import nifti, store
 from .cache import LRUBytesCache
+from .image import determine_tumor_crop
 
-__all__ = ["ImageGraphDataset", "discover_sample_dirs"]
+__all__ = ["ImageGraphDataset", "PredLogitDataset", "discover_sample_dirs"]
 
 
 def discover_sample_dirs(root: str, prefix: str = "") -> dict[str, str]:
@@ -165,3 +165,35 @@ class ImageGraphDataset:
         from .image import BRATS_SHAPE
 
         return BRATS_SHAPE
+
+
+class PredLogitDataset:
+    """Serves saved GNN voxel-logit volumes and their tumor crops
+    (`data_loader.py:131-159`). Logit files: <root>/<mri_id>_logits.nii.gz,
+    as cli/generate_gnn_predictions.py -f logits writes them. Each id's
+    crop (determine_tumor_crop of the logits' argmax) is computed once."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self._crops = {}
+
+    def read_logits(self, mri_id: str) -> np.ndarray:
+        fp = os.path.join(self.root, f"{mri_id}_logits.nii.gz")
+        if not os.path.exists(fp):
+            raise FileNotFoundError(f"Logit file for {mri_id} not found in {self.root}")
+        return nifti.read_nifti(fp, np.float32)
+
+    def _crop_of(self, mri_id: str, logits: np.ndarray):
+        if mri_id not in self._crops:
+            self._crops[mri_id] = determine_tumor_crop(np.argmax(logits, axis=-1))
+        return self._crops[mri_id]
+
+    def get_crop(self, mri_id: str):
+        if mri_id in self._crops:
+            return self._crops[mri_id]
+        return self._crop_of(mri_id, self.read_logits(mri_id))
+
+    def get_one(self, mri_id: str):
+        """-> (logits [X, Y, Z, C] float32, crop); one read of the file."""
+        logits = self.read_logits(mri_id)
+        return logits, self._crop_of(mri_id, logits)

@@ -28,10 +28,22 @@ _K = 5
 _PAD = 2
 
 
+def _replicate_pad(x: torch.Tensor, p: int = _PAD) -> torch.Tensor:
+    """Edge-replicate the spatial dims of x [B, C, D, H, W] by p on each
+    side, by concatenating copies of the edge planes. The values are
+    F.pad(mode="replicate")'s; the backward adds the copies' gradients in a
+    fixed order, where F.pad's replicate backward on CUDA accumulates with
+    atomics and changes the gradient from run to run."""
+    for dim in (2, 3, 4):
+        n = x.shape[dim]
+        x = torch.cat([x.narrow(dim, 0, 1)] * p + [x]
+                      + [x.narrow(dim, n - 1, 1)] * p, dim)
+    return x
+
+
 def _replicate_conv3d(x, w, b):
     """x [B, C, D, H, W]; w [Cout, Cin, 5, 5, 5]: replicate-pad 2, VALID conv."""
-    x = F.pad(x, (_PAD,) * 6, mode="replicate")
-    return F.conv3d(x, w, b)
+    return F.conv3d(_replicate_pad(x), w, b)
 
 
 class CnnRefinementNet(nn.Module):
@@ -56,6 +68,12 @@ class CnnRefinementNet(nn.Module):
         ).permute(dhwio_to_oidhw).contiguous())
         self.b1 = nn.Parameter(conv_bias_uniform(c1 * _K ** 3, out_classes,
                                                  generator))
+
+    def jax_parameters(self) -> list[nn.Parameter]:
+        """The parameters in the JAX package's pytree flatten order
+        (conv0/b, conv0/w, conv1/b, conv1/w): the order of checkpoint leaves
+        and of optimizer state leaves."""
+        return [self.b0, self.w0, self.b1, self.w1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, D, H, W, in_feats] -> float32 logits [B, D, H, W, out_classes]."""

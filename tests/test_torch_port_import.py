@@ -2,8 +2,8 @@
 
 Every module of gnn_tumor_seg_tpu_torch is imported in a fresh interpreter
 in which importing `jax` or `gnn_tumor_seg_tpu` fails, and one CPU training
-epoch and evaluation of GSpool and of GAT run there; the interpreter must then hold no `jax` and
-no `gnn_tumor_seg_tpu` module. Importing must also build nothing: the
+epoch and evaluation of GSpool, of GAT and of the refinement CNN run there;
+the interpreter must then hold no `jax` and no `gnn_tumor_seg_tpu` module. Importing must also build nothing: the
 kernels are compiled at first use.
 """
 
@@ -42,6 +42,28 @@ gat = GNNTrainer("GAT", HyperParams(layer_sizes=[4], batch_size=2, gat_heads=[2]
                                     gat_residuals=[False]), data, device="cpu")
 gat.run_epoch()
 gat.evaluate(data)
+# and of the refinement CNN, on one tiny image with a saved logit volume
+import tempfile
+import numpy as np
+from gnn_tumor_seg_tpu_torch.data import nifti
+from gnn_tumor_seg_tpu_torch.data.dataset import PredLogitDataset
+from gnn_tumor_seg_tpu_torch.train.cnn_trainer import CNNTrainer
+
+class Images:
+    ids = ["a"]
+    def get_image(self, i):
+        return np.random.default_rng(0).normal(size=(8, 8, 8, 4)).astype(np.float32)
+    def get_voxel_labels(self, i):
+        return np.random.default_rng(1).integers(0, 4, (8, 8, 8)).astype(np.int16)
+
+logit_dir = tempfile.mkdtemp()
+logits = np.zeros((8, 8, 8, 4), np.float32)
+logits[2:6, 2:6, 2:6, 1] = 5.0
+nifti.save_as_nifti(logits, logit_dir + "/a_logits.nii.gz")
+cnn = CNNTrainer(HyperParams(in_feats=8, layer_sizes=[4], batch_size=1), Images(),
+                 PredLogitDataset(logit_dir), crop_floor=None, device="cpu")
+cnn.run_epoch()
+cnn.evaluate()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "gnn_tumor_seg_tpu"
              or m.startswith("gnn_tumor_seg_tpu."))
@@ -64,6 +86,11 @@ def test_port_imports_no_jax_and_no_jax_package():
         "gnn_tumor_seg_tpu_torch.cli.train_gnn",
         "gnn_tumor_seg_tpu_torch.cli.preprocess",
         "gnn_tumor_seg_tpu_torch.cli.warmup",
+        "gnn_tumor_seg_tpu_torch.cli.train_refinement_cnn",
+        "gnn_tumor_seg_tpu_torch.cli.generate_gnn_predictions",
+        "gnn_tumor_seg_tpu_torch.cli.generate_joint_predictions",
+        "gnn_tumor_seg_tpu_torch.cli.sweep",
+        "gnn_tumor_seg_tpu_torch.train.cnn_trainer",
         "gnn_tumor_seg_tpu_torch.ops.slic_device",
         "gnn_tumor_seg_tpu_torch.data.preprocess",
         "gnn_tumor_seg_tpu_torch.ops.sddmm",

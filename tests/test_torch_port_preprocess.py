@@ -113,7 +113,7 @@ def test_weighted_store_trains_on_the_cpu(stores, tmp_path):
 
 @pytest.mark.parametrize("flags", [["--slic_impl", "tpu"],
                                    ["--prep_impl", "device"]])
-def test_cli_refuses_device_preprocessing(stores, tmp_path, flags):
+def test_cli_device_preprocessing_matches_host(stores, tmp_path, flags):
     """The device preprocessing flags, refused before the chain was ported,
     now run on the two brains (--slic_impl tpu implies --prep_impl device):
     every sample's standardized input is bitwise the host path's, and its

@@ -184,7 +184,7 @@ def test_cli_main_writes_nifti(case, tmp_path):
 
 @pytest.mark.parametrize("flags", [["--slic_impl", "tpu"],
                                    ["--prep_impl", "device"]])
-def test_cli_rejects_unported_device_preprocess(case, tmp_path, flags):
+def test_cli_device_preprocess_matches_host(case, tmp_path, flags):
     """The device preprocessing flags, refused before the chain was ported,
     now run (--slic_impl tpu implies --prep_impl device): the CLI writes
     BraTS labels that agree in >= 0.999 of the voxels with the host path's

@@ -12,7 +12,8 @@ Tolerances:
   * raw SLIC labels: >= 0.995 of the voxels agree with the JAX device SLIC
     and >= 0.98 with the port's host canonical (majority-label agreement,
     `_agreement`: label ids may renumber when a boundary voxel flips); two
-    runs bitwise equal;
+    runs bitwise equal; on a piecewise-constant integer volume (exact ties,
+    exact center sums in both packages) bitwise the JAX device SLIC's;
   * serving (the 32x32x24 case of tests/test_torch_port_serve.py): >= 0.999
     of the final labels agree with the port's host-prep path in "exact"
     (>= 0.9 in "fast") and with the JAX device path in "exact"; with the
@@ -177,6 +178,35 @@ def test_raw_assignment_matches_jax(shape, seed):
     own = (cx[:, None, None] * gy + cy[None, :, None]) * gz + cz[None, None, :]
     assert np.array_equal(slic_device.slic_assign_device(
         sm, 48, 0.5, max_iter=0, device="cpu"), own)
+
+
+def _blocks(seed, shape=(30, 26, 22, 4), n_blocks=6):
+    """A piecewise-constant, integer-valued volume: n_blocks boxes of values
+    1-3 on 0. Distances tie exactly wherever the volume is constant, and
+    both packages' center sums are exact on it."""
+    rng = np.random.default_rng(seed)
+    vol = np.zeros(shape, np.float32)
+    for _ in range(n_blocks):
+        lo = [int(rng.integers(0, s - 4)) for s in shape[:3]]
+        hi = [int(rng.integers(l + 3, s + 1)) for l, s in zip(lo, shape[:3])]
+        vol[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = rng.integers(
+            1, 4, shape[3]).astype(np.float32)
+    return vol
+
+
+@pytest.mark.parametrize("seed,max_iter", [(0, 1), (3, 3), (2, 10)])
+def test_raw_assignment_ties_match_jax(seed, max_iter):
+    """On exact ties the first candidate visited wins: the port visits the
+    27 candidates in the JAX package's order, so its raw labels on a
+    piecewise-constant volume are bitwise slic_assign_tpu's (in the port's
+    former (dx, dy, dz) order, 4, 29 and 58 of these 17 160 labels
+    differ)."""
+    vol = _blocks(seed)
+    want = slic_tpu.slic_assign_tpu(vol, 200, 0.5, max_iter=max_iter,
+                                    pad_shape=None)
+    got = slic_device.slic_assign_device(vol, 200, 0.5, max_iter=max_iter,
+                                         device="cpu")
+    assert np.array_equal(got, np.asarray(want))
 
 
 def test_slic_supervoxels_device_is_a_slic_fn():
