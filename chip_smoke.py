@@ -142,7 +142,29 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    same step on the CPU, two exact epochs from one seed compared bitwise,
    the CNN step at the floored crop timed (exact, fast, exact with
    cudnn.deterministic, and both with cudnn.benchmark; CUDA events) with
-   its achieved TFLOP/s, and a cached fast and exact epoch profiled.
+   its achieved TFLOP/s, and a cached fast and exact epoch profiled;
+9. distributed training, the cell train-dist-2rank: phase 6's 6 graphs
+   through six cli.train_gnn --parallel commands run at once, 2 fast epochs
+   each: dp --mesh 2 (two ranks on the one card over gloo) and --mesh 1
+   (NCCL at world size 1) GSpool [256]*6, and halo --mesh 2 on the union of
+   the 6 graphs (42 000 nodes), p2p and all_gather, GSpool and the
+   hardcoded GAT (the all_gather GAT run as one command a rank through
+   --coordinator, the others spawning their ranks). Every run: the loss
+   falls, each rank launches what a step needs (7 max_agg and 7 max_agg_bwd
+   for GSpool; 5 gat_fwd, 5 gat_bwd and 5 gat_rev for GAT), rank 0 alone
+   writes one progress row and the epoch records, and its checkpoint serves
+   through load_gnn_from_checkpoint. In a two-rank world of its own, in
+   "exact", through the trainers' own loss_and_grads (the step short of
+   AdamW): DP logits within DIST_LOGIT_TOL, loss within 1e-5 and summed
+   gradients within DIST_GRAD_TOL of one device's on the same batch, and
+   for every halo model (the p2p exchange staged through host memory) the
+   own-row logits, loss and summed gradients within the same tolerances of
+   one device's on the union; on the rank tables themselves ((2W + shard)
+   rows for p2p, the union's for all_gather), max_agg and max_agg_bwd
+   bitwise and the three GAT kernels within their phase 3 tolerances of
+   their plain versions. Logged with the card: each regime's fast step beside one
+   device's (two ranks sharing one card give no scaling number) and the
+   analytic bytes a rank exchanges a step.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; before it, one JSON line lists the kernels. The last line is
@@ -2855,6 +2877,512 @@ def phase_pipeline(tmp: str, card: str, device="cuda", num_nodes=NUM_NODES) -> d
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 9: distributed training, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+DIST_LOGIT_TOL = 1e-5     # of the largest logit, "exact"
+DIST_GRAD_TOL = 1e-4      # of each gradient's largest entry, "exact"
+DIST_TIMED_STEPS = 5
+DIST_DEADLINE_S = 300
+DIST_EPOCHS = 2           # a --parallel run, in "fast"
+
+
+def dist_step_launches(model_type) -> dict:
+    """A rank's kernel launches a training step: one forward and one
+    backward kernel per GSpool layer, the three attention kernels per GAT
+    layer."""
+    layers = len(_train_hp(model_type).layer_sizes) + 1
+    if model_type == "GSpool":
+        return {"max_agg": layers, "max_agg_bwd": layers}
+    return {"gat_fwd": layers, "gat_bwd": layers, "gat_rev": layers}
+
+
+def dist_cli_argv(data_dir, out_dir, run, model_type, parallel, mesh, n_epochs,
+                  device, variant) -> list[str]:
+    """cli.train_gnn's arguments for one --parallel run (-k 1)."""
+    hp = _train_hp(model_type)
+    argv = ["-d", data_dir, "-o", out_dir, "-r", run, "-m", model_type, "-k", "1",
+            "--hp", f"layer_sizes={hp.layer_sizes}", "--hp", f"n_epochs={n_epochs}",
+            "--device", device, "--parallel", parallel, "--mesh", str(mesh)]
+    return argv + (["--halo_variant", variant] if variant else [])
+
+
+def start_dist_run(argv, mesh, per_rank, log_path) -> list:
+    """Start `python -m gnn_tumor_seg_tpu_torch.cli.train_gnn argv` in
+    "fast": one command that spawns its `mesh` ranks, or with `per_rank` one
+    command a rank joined through --coordinator/--num_processes/--process_id.
+    Each command leads a session of its own, so a kill reaches its ranks."""
+    cmd = [sys.executable, "-m", "gnn_tumor_seg_tpu_torch.cli.train_gnn", *argv]
+    if per_rank:
+        from gnn_tumor_seg_tpu_torch.parallel.mesh import free_port
+
+        coordinator = f"localhost:{free_port()}"
+        cmds = [cmd + ["--coordinator", coordinator, "--num_processes", str(mesh),
+                       "--process_id", str(r)] for r in range(mesh)]
+    else:
+        cmds = [cmd]
+    env = {**os.environ, "GTS_PALLAS_PRECISION": "fast"}
+    procs = []
+    for i, c in enumerate(cmds):
+        with open(f"{log_path}.{i}", "w") as out:
+            procs.append(subprocess.Popen(c, cwd=ROOT, env=env, stdout=out,
+                                          stderr=subprocess.STDOUT,
+                                          start_new_session=True))
+    return procs
+
+
+def wait_dist_runs(started: dict, deadline_s: float) -> None:
+    """Wait for every command of `started` ({run: (procs, log_path)}); kill
+    them all and fail when one exits non-zero or the deadline passes."""
+    import signal
+
+    end = time.perf_counter() + deadline_s
+    try:
+        for run, (procs, log_path) in started.items():
+            for i, proc in enumerate(procs):
+                rc = proc.wait(timeout=max(1.0, end - time.perf_counter()))
+                if rc != 0:
+                    with open(f"{log_path}.{i}") as f:
+                        tail = f.read()[-3000:]
+                    check(False, f"{run}: command {i} exited {rc}:\n{tail}")
+    except subprocess.TimeoutExpired:
+        check(False, f"--parallel runs still running after {deadline_s} s")
+    finally:
+        for procs, _ in started.values():
+            for proc in procs:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+
+
+def check_dist_run(data_dir, out_dir, run, model_type, mesh, n_epochs, card,
+                   device="cuda", label="") -> dict:
+    """Checks of one finished --parallel run in "fast": one JSON-lines record
+    an epoch and one progress row, from rank 0 alone; the per-rank launches
+    of each step (read from the epoch records, which carry every rank's
+    counts); finite losses that fall; and rank 0's checkpoint served through
+    load_gnn_from_checkpoint on this process."""
+    from gnn_tumor_seg_tpu_torch.cli.common import load_gnn_from_checkpoint
+    from gnn_tumor_seg_tpu_torch.data.dataset import ImageGraphDataset
+
+    epochs = _jsonl(os.path.join(out_dir, f"{run}.txt.jsonl"))
+    epochs = [e for e in epochs if e.get("event") == "epoch" and e["run"] == run]
+    check(len(epochs) == n_epochs,
+          f"{run}: {len(epochs)} epoch records for {n_epochs} epochs")
+    with open(os.path.join(out_dir, f"{run}.txt")) as f:
+        text = f.read()
+    rows = [line for line in text.splitlines() if line.startswith(f"{run}_full\t")]
+    check(len(rows) == 1 and text.count("Fold\tLoss") == 1,
+          f"{run}: progress file has {len(rows)} result rows")
+    per_step = {k: (v if device == "cuda" else 0)
+                for k, v in dist_step_launches(model_type).items()}
+    launches = dict(NO_LAUNCHES)
+    for e in epochs:
+        check(len(e["launches_by_rank"]) == mesh,
+              f"{run}: launch counts of {len(e['launches_by_rank'])} ranks")
+        want = {**NO_LAUNCHES, **{k: v * e["steps"] for k, v in per_step.items()}}
+        for r, counts in enumerate(e["launches_by_rank"]):
+            check(counts == want, f"{run} rank {r}: launches {counts}, "
+                                  f"expected {want}")
+            for k, v in counts.items():
+                launches[k] += v
+    losses = [e["loss"] for e in epochs]
+    check(all(np.isfinite(losses)), f"{run}: non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"{run}: fast loss did not fall {losses}")
+    model, _, forward = load_gnn_from_checkpoint(
+        os.path.join(out_dir, f"{run}_f1.ckpt"), device=device)
+    graph = ImageGraphDataset(data_dir, read_image=False).get_graph(0)
+    read = _reset_counts()
+    logits = forward(graph)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        kernel = "max_agg" if model_type == "GSpool" else "gat_fwd"
+        check(read() == {**NO_LAUNCHES, kernel: model.num_layers},
+              f"{run}: served checkpoint launched {read()}")
+    check(bool(torch.isfinite(logits).all()), f"{run}: served logits not finite")
+    step_ms = [e["seconds"] / e["steps"] * 1e3 for e in epochs]
+    log(f"[dist] {run}: {label}, fast, losses {losses}, per rank and step "
+        f"{per_step}, epoch step ms {[round(x, 3) for x in step_ms]}; "
+        f"checkpoint served; card: {card}")
+    return {"losses": losses, "launches": launches, "step_ms": step_ms}
+
+
+def _dist_parity_rank(rank, world, init, data_dir, out_dir, device, timed):
+    """A rank of the parity world. In "exact", through the trainers' own
+    loss_and_grads: the DP loss and summed gradients of one global batch
+    (all samples, rank r's slice) with its logits, and for every halo model
+    (GSpool and GAT, p2p and all_gather) the own-row logits, the loss and
+    the summed gradients on the union of all samples. With `timed`, the
+    fast DP and halo steps."""
+    sys.path.insert(0, ROOT)
+    from gnn_tumor_seg_tpu_torch.data.dataset import ImageGraphDataset
+    from gnn_tumor_seg_tpu_torch.ops.graph import batch_graphs
+    from gnn_tumor_seg_tpu_torch.ops.precision import precision_scope
+    from gnn_tumor_seg_tpu_torch.parallel.dp import ParallelGNNTrainer
+    from gnn_tumor_seg_tpu_torch.parallel.halo_data import build_partitioned_sets
+    from gnn_tumor_seg_tpu_torch.parallel.halo_trainer import HaloTrainer
+    from gnn_tumor_seg_tpu_torch.parallel.mesh import (initialize_multihost,
+                                                       shutdown)
+
+    mesh = initialize_multihost(init, world, rank, device=device, timeout_s=120)
+    dev = mesh.device
+    out = {"backend": np.asarray(mesh.backend),
+           "staged": np.asarray(mesh.staged)}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed_steps(step):
+        for _ in range(2):
+            step()
+        sync()
+        ms = []
+        for _ in range(DIST_TIMED_STEPS):
+            t = time.perf_counter()
+            step()
+            sync()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return np.asarray(ms)
+
+    def grads(prefix, params):
+        for i, p in enumerate(params):
+            out[f"{prefix}/{i}"] = p.grad.cpu().numpy()
+
+    try:
+        dataset = ImageGraphDataset(data_dir, read_image=False)
+        n = len(dataset)
+        local = n // world
+        hp = _train_hp("GSpool")
+        hp.batch_size = n
+        tr = ParallelGNNTrainer("GSpool", hp, dataset, seed=SEED, mesh=mesh,
+                                precision="exact")
+        n_pad, d_pad = tr._shape_budget
+        batch = batch_graphs([dataset.get_graph(i) for i in
+                              range(rank * local, (rank + 1) * local)],
+                             n_pad=n_pad, d_pad=d_pad).to(dev)
+        with precision_scope("exact"):
+            out["dp_loss"] = np.float64(tr.loss_and_grads(batch).item())
+            with torch.no_grad():
+                out["dp_logits"] = tr.model(batch, train=True).cpu().numpy()
+        grads("dp_grad", tr.model.jax_parameters())
+        if timed:
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+
+            def dp_step():
+                with precision_scope("fast"):
+                    tr._step(batch, gen)
+            out["dp_step_ms"] = timed_steps(dp_step)
+        for variant in ("p2p", "all_gather"):
+            (batches,), used, w = build_partitioned_sets(
+                dataset, world, n, variant, [list(range(n))])
+            if used != variant:
+                raise RuntimeError(f"{variant} partition came out {used}")
+            for model_type in ("GSpool", "GAT"):
+                key = f"{model_type}/{variant}"
+                ht = HaloTrainer(model_type, _train_hp(model_type),
+                                 [batches[0].pg], mesh, variant=variant,
+                                 halo_width=w, seed=SEED, precision="exact")
+                rg = ht.graphs[0]
+                out[f"halo/{key}"] = ht.own_logits(rg).cpu().numpy()
+                with precision_scope("exact"):
+                    out[f"halo_loss/{key}"] = np.float64(
+                        ht.loss_and_grads(rg).item())
+                grads(f"halo_grad/{key}", ht.model.jax_parameters())
+                if timed:
+                    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+                    def halo_step():
+                        with precision_scope("fast"):
+                            ht._step(rg, gen)
+                    out[f"halo_step_ms/{key}"] = timed_steps(halo_step)
+        np.savez(os.path.join(out_dir, f"parity_r{rank}.npz"), **out)
+    finally:
+        shutdown()
+
+
+def _time_single_step(model_type, batch, device, steps=DIST_TIMED_STEPS):
+    """A single-device fast training step (forward, loss, backward, AdamW)
+    on `batch`, median ms after 2 warm-up steps."""
+    from gnn_tumor_seg_tpu_torch.models.factory import init_graph_net
+    from gnn_tumor_seg_tpu_torch.ops.precision import precision_scope
+    from gnn_tumor_seg_tpu_torch.train.losses import weighted_cross_entropy
+    from gnn_tumor_seg_tpu_torch.train.optim import make_optimizer
+
+    hp = _train_hp(model_type)
+    model = init_graph_net(model_type, hp,
+                           torch.Generator().manual_seed(SEED)).to(device)
+    opt = make_optimizer(model.jax_parameters(), hp)
+    cw = torch.tensor(hp.class_weights, device=device)
+    ms = []
+    for i in range(steps + 2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with precision_scope("fast"):
+            loss = weighted_cross_entropy(model(batch, train=True), batch.labels,
+                                          cw, batch.node_mask)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        if i >= 2:
+            ms.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(ms)
+
+
+def check_kernels_on_halo_tables(dev, tables) -> dict:
+    """The halo path's kernels against their plain versions on the rank
+    tables phase 9 trains on (`tables`: (tag, B=1 GraphBatch with rslot),
+    (2W + shard) or the union's rows at its D): max_agg (arg stored) and
+    max_agg_bwd bitwise at F = 20 and 256, the three GAT kernels at the
+    hardcoded GAT's (H, F) with ELU and a residual (forward within
+    GAT_FWD_TOL, backward within GAT_BWD_TOL, reverse combine bitwise), f32
+    and bf16. Returns the largest relative difference per kernel."""
+    from gnn_tumor_seg_tpu_torch.ops.kernels.fused_gat import (
+        fused_gat_backward, fused_gat_backward_plain, fused_gat_forward,
+        fused_gat_forward_plain, gat_reverse_combine, gat_reverse_combine_plain)
+    from gnn_tumor_seg_tpu_torch.ops.kernels.max_agg import (
+        max_aggregate, max_aggregate_backward, max_aggregate_backward_plain,
+        max_aggregate_plain)
+
+    rng = np.random.default_rng(SEED + 9)
+    worst = {k: 0.0 for k in ("max_agg", "max_agg_bwd", "gat_fwd", "gat_bwd",
+                              "gat_rev")}
+    for tag, g in tables:
+        nbr, mask, rslot = g.nbr, g.nbr_mask, g.rslot
+        N = nbr.shape[1]
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            for F in (IN_FEATS, TRAIN_WIDTHS[0]):
+                h = torch.from_numpy(rng.integers(-8, 8, (1, N, F)) / 4.0).to(dev, dtype)
+                gout = torch.from_numpy(rng.normal(size=(1, N, F))).to(dev, dtype)
+                out, arg = max_aggregate(h, nbr, mask, with_arg=True)
+                w_out, w_arg = max_aggregate_plain(h, nbr, mask)
+                grad = max_aggregate_backward(gout, arg, nbr, mask, rslot)
+                w_grad = max_aggregate_backward_plain(gout, arg, nbr, mask, rslot)
+                check(torch.equal(_bits(out), _bits(w_out)) and torch.equal(arg, w_arg)
+                      and torch.equal(_bits(grad), _bits(w_grad)),
+                      f"max_agg / max_agg_bwd differ from their plain versions on "
+                      f"the {tag} table (F={F}, {dtype})")
+            for H, F in gat_head_shapes(gat_layers()):
+                x = gat_inputs(rng, 1, N, H, F, dtype, dev)
+                args = (x["z"], x["el"], x["er"], nbr, mask, 0.2, "elu",
+                        x["res"], x["bias"])
+                out, alpha, pos = fused_gat_forward(*args, save=True)
+                w_out, w_alpha, w_pos = fused_gat_forward_plain(*args)
+                d_pre, d_er = fused_gat_backward(x["gout"], x["z"], alpha, pos, nbr, mask)
+                w_pre, w_er = fused_gat_backward_plain(x["gout"], x["z"], alpha, pos,
+                                                       nbr, mask)
+                d_z, d_el = gat_reverse_combine(x["gout"], alpha, d_pre, nbr, mask, rslot)
+                w_z, w_el = gat_reverse_combine_plain(x["gout"], alpha, d_pre, nbr,
+                                                      mask, rslot)
+                errs = {"gat_fwd": max(within(out, w_out, bf16), within(alpha, w_alpha)),
+                        "gat_bwd": max(within(d_pre, w_pre), within(d_er, w_er)),
+                        "gat_rev": max(within(d_z, w_z), within(d_el, w_el))}
+                for k, v in errs.items():
+                    worst[k] = max(worst[k], v)
+                check(errs["gat_fwd"] <= GAT_FWD_TOL and torch.equal(pos, w_pos)
+                      and errs["gat_bwd"] <= GAT_BWD_TOL
+                      and torch.equal(_bits(d_z), _bits(w_z))
+                      and torch.equal(d_el, w_el),
+                      f"GAT kernels differ from their plain versions on the {tag} "
+                      f"table (H={H}, F={F}, {dtype}): {errs}")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        log(f"[dist] kernels on the {tag} table (N={N}, D={nbr.shape[2]}): "
+            f"max_agg, max_agg_bwd and gat_rev bitwise, gat_fwd within "
+            f"{GAT_FWD_TOL}, gat_bwd within {GAT_BWD_TOL}, f32 and bf16")
+    return worst
+
+
+def phase_train_dist(data_dir: str, tmp: str, card: str, device="cuda") -> dict:
+    """The cell train-dist-2rank: phase 6's 6 graphs of 7000 nodes through
+    cli.train_gnn --parallel, 2 fast epochs a run, the six runs at once (so
+    their epoch times are not step times): dp --mesh 2 (two ranks on the one
+    card, gloo) and --mesh 1 (NCCL at world size 1) GSpool [256]*6, and halo
+    --mesh 2 (one union of all 6 graphs) with p2p and all_gather, GSpool
+    [256]*6 and the hardcoded GAT; one run starts a command a rank through
+    --coordinator, the others spawn their ranks. Then, in a two-rank world
+    of its own, DP and halo held to one device in "exact" through the
+    trainers' own loss_and_grads, and (on the card) the steps of each regime
+    timed beside one device's, with the analytic bytes each rank exchanges
+    a step."""
+    import torch.multiprocessing as mp
+
+    from gnn_tumor_seg_tpu_torch.data.dataset import ImageGraphDataset
+    from gnn_tumor_seg_tpu_torch.ops.graph import batch_graphs, graph_from_arrays
+    from gnn_tumor_seg_tpu_torch.ops.precision import precision_scope
+    from gnn_tumor_seg_tpu_torch.parallel.halo import exchange_bytes_per_step
+    from gnn_tumor_seg_tpu_torch.parallel.halo_data import (
+        build_partitioned_sets, union_samples, unpermute_nodes)
+    from gnn_tumor_seg_tpu_torch.models.factory import init_graph_net
+    from gnn_tumor_seg_tpu_torch.parallel.mesh import free_port
+    from gnn_tumor_seg_tpu_torch.train.gnn_trainer import GNNTrainer
+    from gnn_tumor_seg_tpu_torch.train.losses import weighted_cross_entropy
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(tmp, "dist_logs")
+    os.makedirs(out_dir)
+    # (run, model, --parallel, --mesh, --halo_variant, one command a rank)
+    plan = [("dp2", "GSpool", "dp", 2, None, False),
+            ("dp1", "GSpool", "dp", 1, None, False),
+            ("halo_p2p_gspool", "GSpool", "halo", 2, "p2p", False),
+            ("halo_ag_gspool", "GSpool", "halo", 2, "all_gather", False),
+            ("halo_p2p_gat", "GAT", "halo", 2, "p2p", False),
+            ("halo_ag_gat", "GAT", "halo", 2, "all_gather", True)]
+    started = {}
+    for run, mt, par, mesh, variant, per_rank in plan:
+        argv = dist_cli_argv(data_dir, out_dir, run, mt, par, mesh,
+                             DIST_EPOCHS, device, variant)
+        started[run] = (start_dist_run(argv, mesh, per_rank,
+                                       os.path.join(out_dir, f"{run}.out")),
+                        os.path.join(out_dir, f"{run}.out"))
+    wait_dist_runs(started, DIST_DEADLINE_S)
+    t_cli = time.perf_counter() - t0
+    runs = {}
+    for run, mt, par, mesh, variant, per_rank in plan:
+        label = (f"{mt} --parallel {par} --mesh {mesh}"
+                 + (f" {variant}" if variant else "")
+                 + (" (a command a rank, --coordinator)" if per_rank else ""))
+        runs[run] = check_dist_run(data_dir, out_dir, run, mt, mesh,
+                                   DIST_EPOCHS, card, device, label)
+
+    # parity (and timing on the card) in a world of two ranks
+    par_dir = os.path.join(tmp, "dist_parity")
+    os.makedirs(par_dir)
+    timed = device == "cuda"
+    ctx = mp.start_processes(
+        _dist_parity_rank, nprocs=2, join=False, start_method="spawn",
+        args=(2, f"tcp://localhost:{free_port()}", data_dir, par_dir, device,
+              timed))
+    end = time.perf_counter() + DIST_DEADLINE_S
+    try:
+        while not ctx.join(timeout=1.0):
+            check(time.perf_counter() < end,
+                  f"parity ranks still running after {DIST_DEADLINE_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    ranks = [dict(np.load(os.path.join(par_dir, f"parity_r{r}.npz")))
+             for r in range(2)]
+    dataset = ImageGraphDataset(data_dir, read_image=False)
+    n = len(dataset)
+    single = GNNTrainer("GSpool", _train_hp("GSpool"), dataset, seed=SEED,
+                        precision="exact", device=device)
+    batch = batch_graphs([dataset.get_graph(i) for i in range(n)]).to(device)
+    with precision_scope("exact"):
+        logits = single.model(batch, train=True)
+        loss = weighted_cross_entropy(logits, batch.labels, single.class_weights,
+                                      batch.node_mask)
+        grads = torch.autograd.grad(loss, single.model.jax_parameters())
+    local = n // 2
+    logit_err = max(within(torch.from_numpy(r["dp_logits"]),
+                           logits[i * local:(i + 1) * local].detach().cpu())
+                    for i, r in enumerate(ranks))
+    grad_err = max(within(torch.from_numpy(r[f"dp_grad/{j}"]), g.cpu())
+                   for r in ranks for j, g in enumerate(grads))
+    check(str(ranks[0]["backend"]) == "gloo",
+          f"two ranks on one device ran over {ranks[0]['backend']}")
+    check(logit_err <= DIST_LOGIT_TOL and grad_err <= DIST_GRAD_TOL,
+          f"DP against one device: logits {logit_err:.3g}, gradients "
+          f"{grad_err:.3g} of their largest entries")
+    check(abs(float(ranks[0]["dp_loss"]) - loss.item()) <= 1e-5 * abs(loss.item()),
+          f"DP loss {float(ranks[0]['dp_loss'])} against {loss.item()}")
+    feats, src, dst, labels, _, _ = union_samples(
+        [dataset.get_sample(i) for i in range(n)])
+    union = graph_from_arrays(feats, src, dst, labels, rslot=True).to(device)
+    from gnn_tumor_seg_tpu_torch.parallel.halo import place_partition
+    from gnn_tumor_seg_tpu_torch.parallel.mesh import Mesh
+
+    check(bool(ranks[0]["staged"]) == (device == "cuda"),
+          "the two-rank gloo world on the card did not stage its exchange")
+    want = {}
+    for model_type in ("GSpool", "GAT"):
+        model = init_graph_net(model_type, _train_hp(model_type),
+                               torch.Generator().manual_seed(SEED)).to(device)
+        cw = torch.tensor(_train_hp(model_type).class_weights, device=device)
+        with precision_scope("exact"):
+            u_logits = model(union, train=True)
+            u_loss = weighted_cross_entropy(u_logits, union.labels, cw,
+                                            union.node_mask)
+            u_grads = torch.autograd.grad(u_loss, model.jax_parameters())
+        want[model_type] = (model, u_logits.detach().cpu(), u_loss.item(),
+                            [g.cpu() for g in u_grads])
+    halo_err, nbytes, single_ms, halo_tables = {}, {}, {}, []
+    for variant in ("p2p", "all_gather"):
+        (batches,), _, w = build_partitioned_sets(dataset, 2, n, variant,
+                                                  [list(range(n))])
+        b = batches[0]
+        for model_type in ("GSpool", "GAT"):
+            key = f"{model_type}/{variant}"
+            model, u_logits, u_loss, u_grads = want[model_type]
+            got = unpermute_nodes(np.stack([r[f"halo/{key}"] for r in ranks]),
+                                  b.n_total)
+            err = {"logits": within(torch.from_numpy(got),
+                                    u_logits[0, :b.n_total]),
+                   "loss": max(abs(float(r[f"halo_loss/{key}"]) - u_loss)
+                               for r in ranks) / abs(u_loss),
+                   "grads": max(within(torch.from_numpy(r[f"halo_grad/{key}/{j}"]), g)
+                                for r in ranks for j, g in enumerate(u_grads))}
+            halo_err[key] = err
+            check(err["logits"] <= DIST_LOGIT_TOL and err["loss"] <= 1e-5
+                  and err["grads"] <= DIST_GRAD_TOL,
+                  f"halo {model_type} {variant} against one device on the "
+                  f"union: own-row logits {err['logits']:.3g}, loss "
+                  f"{err['loss']:.3g}, gradients {err['grads']:.3g} of their "
+                  f"largest entries")
+            nbytes[key] = {
+                "f32": exchange_bytes_per_step(model, b.pg, variant, w, 4),
+                "bf16": exchange_bytes_per_step(model, b.pg, variant, w, 2)}
+        for r in ((0, 1) if variant == "p2p" else (0,)):
+            rank = Mesh(world_size=2, rank=r, device=torch.device(device),
+                        backend="gloo", n_data=2)
+            halo_tables.append((f"{variant} rank {r}",
+                                place_partition(b.pg, rank, w).table))
+    table_err = check_kernels_on_halo_tables(torch.device(device), halo_tables)
+    log(f"[dist] exact parity: DP logits {logit_err:.3g}, gradients "
+        f"{grad_err:.3g} (tolerances {DIST_LOGIT_TOL}, {DIST_GRAD_TOL}); halo "
+        f"own-row logits, loss and summed gradients (p2p staged through host "
+        f"memory) {json.dumps({k: {m: float(f'{x:.3g}') for m, x in v.items()} for k, v in halo_err.items()})} "
+        f"of the largest, union of {n} graphs ({len(feats)} nodes); card: {card}")
+    for k, v in nbytes.items():
+        log(f"[dist] exchange {k} per rank and step (analytic): f32 "
+            f"{v['f32']['step_bytes_per_device']} B, bf16 "
+            f"{v['bf16']['step_bytes_per_device']} B, rows a layer "
+            f"{v['f32']['rows_exchanged_per_layer']}, widths "
+            f"{v['f32']['layer_widths']}")
+    timing = {}
+    if timed:
+        single_ms["GSpool/batch6"] = _time_single_step("GSpool", batch, device)
+        for model_type in ("GSpool", "GAT"):
+            single_ms[f"{model_type}/union"] = _time_single_step(
+                model_type, union, device)
+        timing = {"dp_2rank_ms": float(np.median(ranks[0]["dp_step_ms"])),
+                  "single_batch6_ms": single_ms["GSpool/batch6"]}
+        for key in ranks[0]:
+            if key.startswith("halo_step_ms/"):
+                timing[key.replace("halo_step_ms/", "halo_2rank_ms/")] = \
+                    float(np.median(ranks[0][key]))
+        for mt in ("GSpool", "GAT"):
+            timing[f"single_union_ms/{mt}"] = single_ms[f"{mt}/union"]
+        log("[dist] fast step, median of " f"{DIST_TIMED_STEPS} (ms; two ranks "
+            "share one card over gloo with host-staged exchanges, so these are "
+            "no scaling numbers): " + json.dumps(
+                {k: round(v, 3) for k, v in timing.items()}) + f"; card: {card}")
+    launches = dict(NO_LAUNCHES)
+    for r in runs.values():
+        for k, v in r["launches"].items():
+            launches[k] += v
+    log(f"[dist] phase 9: {len(runs)} CLI runs at once in {t_cli:.1f} s, whole phase "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    return {"runs": runs, "launches": launches, "timing": timing,
+            "bytes": nbytes, "halo_err": halo_err, "table_err": table_err,
+            "dp_err": {"logits": logit_err, "grads": grad_err}}
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run",
@@ -2911,12 +3439,17 @@ def main() -> int:
         mean_step = time_train_steps(dataset, card, "GSmean")
         done("phase 7")
         pipe = phase_pipeline(tmp, card)
-    done("phase 8")
+        done("phase 8")
+        dist = phase_train_dist(train["data_dir"], tmp, card)
+    done("phase 9")
     paths = {"train": train["runs"], "preprocess_weighted": {"prep": prep["run"]},
              "train_weighted": weighted["runs"], "train_gat_attndrop": drop["runs"]}
     by_path = {path: {k: sum(r["counts"][k] for r in runs.values())
                       for k in NO_LAUNCHES} for path, runs in paths.items()}
+    by_path["train_dist"] = dist["launches"]
     train_launches = {k: sum(c[k] for c in by_path.values()) for k in NO_LAUNCHES}
+    dl = dist["launches"]
+    one_dev = {k: train_launches[k] - dl[k] for k in NO_LAUNCHES}
     for k, n in train_launches.items():
         check(n > 0, f"{k} was never launched on the training paths")
     rows = ttime["rows"]
@@ -2938,7 +3471,8 @@ def main() -> int:
                      + train_launches["max_agg"] + pipe["launches"]["max_agg"]),
         "launches_by_path": {"serve": serve["launches"],
                              "serve_deviceprep": deviceprep["launches"]["max_agg"],
-                             "train": train_launches["max_agg"],
+                             "train": one_dev["max_agg"],
+                             "train_dist": dl["max_agg"],
                              "pipeline": pipe["launches"]["max_agg"]},
         "max_abs_err": worst,
         "ms": f32["ms"],
@@ -2961,7 +3495,8 @@ def main() -> int:
         "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/max_agg.cu",
         "replaces": "gnn_tumor_seg_tpu/ops/pallas/gather_agg.py:200",
         "launches": train_launches["max_agg_bwd"] + pipe["launches"]["max_agg_bwd"],
-        "launches_by_path": {"train": train_launches["max_agg_bwd"],
+        "launches_by_path": {"train": one_dev["max_agg_bwd"],
+                             "train_dist": dl["max_agg_bwd"],
                              "pipeline": pipe["launches"]["max_agg_bwd"]},
         "max_abs_err": train_worst["max_agg_bwd"],
         **gspool_step["max_agg_bwd"],
@@ -3001,7 +3536,8 @@ def main() -> int:
                      + train_launches["gat_fwd"]),
         "launches_by_path": {"serve": serve["gat"]["launches"],
                              "serve_deviceprep": deviceprep["launches"]["gat_fwd"],
-                             "train": train_launches["gat_fwd"]},
+                             "train": one_dev["gat_fwd"],
+                             "train_dist": dl["gat_fwd"]},
         "max_abs_err": gat_worst["abs"]["gat_fwd"],
         "max_rel_err": gat_worst["rel"]["gat_fwd"],
         **gat_per_step(gtime, "gat_fwd"),
@@ -3017,6 +3553,8 @@ def main() -> int:
         "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/fused_gat.cu",
         "replaces": "gnn_tumor_seg_tpu/ops/pallas/fused_gat.py:186",
         "launches": train_launches["gat_bwd"],
+        "launches_by_path": {"train": one_dev["gat_bwd"],
+                             "train_dist": dl["gat_bwd"]},
         "max_abs_err": gat_worst["abs"]["gat_bwd"],
         "max_rel_err": gat_worst["rel"]["gat_bwd"],
         **gat_per_step(gtime, "gat_bwd"),
@@ -3031,6 +3569,8 @@ def main() -> int:
         "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/fused_gat.cu",
         "replaces": "gnn_tumor_seg_tpu/ops/pallas/fused_gat.py:238",
         "launches": train_launches["gat_rev"],
+        "launches_by_path": {"train": one_dev["gat_rev"],
+                             "train_dist": dl["gat_rev"]},
         "max_abs_err": gat_worst["abs"]["gat_rev"],
         **gat_per_step(gtime, "gat_rev"),
         "bound_by": "bytes",

@@ -14,12 +14,34 @@ directory, in the JAX package's formats.
 Runs on the GPU unless --device cpu is given (then every aggregation and
 GAT's fused attention take their plain PyTorch versions). Training runs in
 precision mode "fast" unless GTS_PALLAS_PRECISION=exact, as for the JAX
-package. The JAX package's distribution options (--parallel dp|halo,
---mesh, --halo_variant, --graphs_per_batch and the multi-host flags) are
-accepted by the parser and refused: the port's distribution is still to
-come (ROADMAP.md, modules to port, item "Distribution"). --impl has no
-counterpart: the port has one aggregation per device, the kernels on CUDA
-and their plain versions on the CPU.
+package. --impl has no counterpart: the port has one aggregation per
+device, the kernels on CUDA and their plain versions on the CPU.
+
+Distributed training, one process per rank over torch.distributed
+(parallel/):
+
+  --parallel dp   --mesh D    data-parallel minibatch training
+                              (parallel/dp.py): each rank takes its slice
+                              of every global batch; the loss is the global
+                              weighted mean and the gradients are summed.
+  --parallel halo --mesh D    node-partitioned giant-graph training
+                              (parallel/halo*.py): each step's minibatch is
+                              one disjoint-union graph split over the ranks;
+                              --halo_variant p2p exchanges only boundary
+                              rows (all_gather when the edges are not
+                              local, which it prints), all_gather works for
+                              any edge structure.
+
+Without --coordinator the command starts the D ranks itself
+(torch.multiprocessing.spawn; D = 1 runs in this process), on
+cuda:(rank % visible cards), or on the CPU with --device cpu. With
+--coordinator HOST:PORT --num_processes P --process_id R it is one rank of
+P, started once per rank. NCCL serves ranks that each have a card; gloo
+serves the CPU and ranks that share a card. Rank 0 alone writes
+checkpoints and progress files, and the command exits non-zero if any rank
+fails. --mesh D,M with M > 1 (tensor parallelism) is refused: it is not
+ported yet (ROADMAP.md). --mesh defaults to every visible card (1 on the
+CPU).
 """
 
 from __future__ import annotations
@@ -41,12 +63,7 @@ from ..train.gnn_trainer import GNNTrainer
 
 __all__ = ["main", "build_parser", "apply_hp_overrides", "document_metrics"]
 
-# options of the JAX CLI that need the port's distribution (not yet ported)
-_DISTRIBUTION_OPTIONS = {
-    "parallel": "single", "mesh": None, "halo_variant": "p2p",
-    "graphs_per_batch": None, "coordinator": None, "num_processes": None,
-    "process_id": None,
-}
+_MULTI_PROCESS_OPTIONS = ("coordinator", "num_processes", "process_id")
 
 
 class _SubsetView:
@@ -64,6 +81,9 @@ class _SubsetView:
 
     def get_graph(self, i):
         return self.base.get_graph(self.indices[i])
+
+    def get_sample(self, i):
+        return self.base.get_sample(self.indices[i])
 
     def get_supervoxel_partitioning(self, mri_id):
         return self.base.get_supervoxel_partitioning(mri_id)
@@ -92,8 +112,10 @@ def apply_hp_overrides(hp, overrides):
     return hp
 
 
-def document_metrics(fp: str, description: str, results) -> None:
-    """Pretty-print + progress-file row (`scripts/train_gnn.py:48-59`)."""
+def document_metrics(fp: str, description: str, results,
+                     coordinator: bool = True) -> None:
+    """Pretty-print + progress-file row (`scripts/train_gnn.py:48-59`); only
+    the coordinator writes the row."""
     metrics, counts = np.around(results[0], 4), results[1]
     print(f"\n#{description} Results#")
     print("Loss:", metrics[0])
@@ -102,37 +124,147 @@ def document_metrics(fp: str, description: str, results) -> None:
     print(f"WT Node Dice: {metrics[1]}, CT Node Dice: {metrics[2]}, ET Node Dice: {metrics[3]}")
     print(f"WT Voxel Dice: {metrics[4]}, CT Voxel Dice: {metrics[5]}, ET Voxel Dice: {metrics[6]}")
     print(f"WT HD95: {metrics[7]}, CT HD95: {metrics[8]}, ET HD95: {metrics[9]}")
-    folds.update_progress_file(fp, description, metrics[0], metrics[4:7])
+    if coordinator:
+        folds.update_progress_file(fp, description, metrics[0], metrics[4:7])
 
 
-def train_on_full_dataset(args, hp, progress_fp, dataset):
+# ---------------------------------------------------------------------------
+# minibatch regimes: one device, or data-parallel over the mesh
+# ---------------------------------------------------------------------------
+
+
+def _make_trainer(args, hp, train_view, mesh):
+    if mesh is not None:
+        from ..parallel.dp import ParallelGNNTrainer
+
+        return ParallelGNNTrainer(args.model_type, hp, train_view, mesh=mesh)
+    return GNNTrainer(args.model_type, hp, train_view, device=args.device)
+
+
+def _evaluate(model, dataset, indices, mesh):
+    """Evaluate `indices`: on one device all of them; data-parallel, each
+    rank its shard, combined over the ranks."""
+    if mesh is None:
+        return model.evaluate(dataset, indices)
+    from ..parallel.multihost import combine_eval_results, process_shard
+
+    local = process_shard(indices, mesh.rank, mesh.world_size)
+    metrics, counts = model.evaluate(dataset, local)
+    metrics, counts, _ = combine_eval_results(metrics, counts, len(local), mesh)
+    return metrics, counts
+
+
+def _log_fp(progress_fp, mesh):
+    return progress_fp + ".jsonl" if mesh is None or mesh.is_coordinator else None
+
+
+def train_on_full_dataset(args, hp, progress_fp, dataset, mesh=None):
     print("Training on full dataset")
     all_idx = list(range(len(dataset)))
-    model = GNNTrainer(args.model_type, hp, _SubsetView(dataset, all_idx),
-                       device=args.device)
+    model = _make_trainer(args, hp, _SubsetView(dataset, all_idx), mesh)
     if args.resume_from:
         print(f"Resuming from {args.resume_from}")
         model.restore(os.path.expanduser(args.resume_from))
     folds.train_on_fold(model, args.output_dir + os.sep, hp.n_epochs,
-                        args.run_name, 1, log_fp=progress_fp + ".jsonl")
+                        args.run_name, 1, log_fp=_log_fp(progress_fp, mesh))
     document_metrics(progress_fp, f"{args.run_name}_full",
-                     model.evaluate(dataset, all_idx))
+                     _evaluate(model, dataset, all_idx, mesh),
+                     coordinator=mesh is None or mesh.is_coordinator)
 
 
-def run_k_fold_val(args, hp, progress_fp, dataset, k):
+def run_k_fold_val(args, hp, progress_fp, dataset, k, mesh=None):
+    coordinator = mesh is None or mesh.is_coordinator
     for fold_idx, (s, e) in enumerate(folds.chunk_dataset_into_folds(len(dataset), k)):
         val_idx = list(range(s, e))
         train_idx = list(range(0, s)) + list(range(e, len(dataset)))
         train_view = _SubsetView(dataset, train_idx)
         print(f"Fold contains {len(train_view)} examples")
-        model = GNNTrainer(args.model_type, hp, train_view, device=args.device)
+        model = _make_trainer(args, hp, train_view, mesh)
         fold = fold_idx + 1
         folds.train_on_fold(model, args.output_dir + os.sep, hp.n_epochs,
-                            args.run_name, fold, log_fp=progress_fp + ".jsonl")
+                            args.run_name, fold,
+                            log_fp=_log_fp(progress_fp, mesh))
         document_metrics(progress_fp, f"{args.run_name}_f{fold}_train",
-                         model.evaluate(dataset, train_idx))
+                         _evaluate(model, dataset, train_idx, mesh),
+                         coordinator=coordinator)
         document_metrics(progress_fp, f"{args.run_name}_f{fold}_val",
-                         model.evaluate(dataset, val_idx))
+                         _evaluate(model, dataset, val_idx, mesh),
+                         coordinator=coordinator)
+
+
+# ---------------------------------------------------------------------------
+# halo regime: node-partitioned giant unions
+# ---------------------------------------------------------------------------
+
+
+def _run_halo(args, hp, progress_fp, dataset, mesh):
+    """Every rank builds the same unions (the graph is partitioned by node
+    range, not by sample), trains with the fold and early-stop contract, and
+    evaluates with the reference's 10-metric vector (JAX cli/train_gnn.py:185)."""
+    from ..parallel.halo_data import build_partitioned_sets
+    from ..parallel.halo_trainer import HaloTrainer
+
+    n_parts = mesh.world_size
+    gpb = args.graphs_per_batch or hp.batch_size
+    k = args.num_folds
+    coordinator = mesh.is_coordinator
+
+    def make_trainer(train_batches, variant, w):
+        resume = (os.path.expanduser(args.resume_from)
+                  if args.resume_from and k == 1 else None)
+        return HaloTrainer(args.model_type, hp, [b.pg for b in train_batches],
+                           mesh, variant=variant, halo_width=w,
+                           resume_from=resume)
+
+    if k == 1:
+        all_idx = list(range(len(dataset)))
+        (batches,), variant, w = build_partitioned_sets(
+            dataset, n_parts, gpb, args.halo_variant, [all_idx])
+        print(f"halo: {len(batches)} union graph(s) of <= {gpb} samples, "
+              f"{n_parts} shards, variant={variant}"
+              + (f", W={w}" if w else ""))
+        model = make_trainer(batches, variant, w)
+        folds.train_on_fold(model, args.output_dir + os.sep, hp.n_epochs,
+                            args.run_name, 1, log_fp=_log_fp(progress_fp, mesh))
+        document_metrics(progress_fp, f"{args.run_name}_full",
+                         model.evaluate(batches, dataset),
+                         coordinator=coordinator)
+        return
+
+    for fold_idx, (s, e) in enumerate(
+            folds.chunk_dataset_into_folds(len(dataset), k)):
+        val_idx = list(range(s, e))
+        train_idx = list(range(0, s)) + list(range(e, len(dataset)))
+        (train_b, val_b), variant, w = build_partitioned_sets(
+            dataset, n_parts, gpb, args.halo_variant, [train_idx, val_idx])
+        print(f"Fold contains {len(train_idx)} examples "
+              f"({len(train_b)} unions, variant={variant})")
+        model = make_trainer(train_b, variant, w)
+        fold = fold_idx + 1
+        # select and early-stop on the partitioned validation loss
+        folds.train_on_fold(model, args.output_dir + os.sep, hp.n_epochs,
+                            args.run_name, fold,
+                            log_fp=_log_fp(progress_fp, mesh),
+                            val_loss_fn=lambda: model.evaluate_loss(val_b))
+        document_metrics(progress_fp, f"{args.run_name}_f{fold}_train",
+                         model.evaluate(train_b, dataset),
+                         coordinator=coordinator)
+        document_metrics(progress_fp, f"{args.run_name}_f{fold}_val",
+                         model.evaluate(val_b, dataset),
+                         coordinator=coordinator)
+
+
+# ---------------------------------------------------------------------------
+
+
+def _parse_mesh(spec: str | None) -> tuple[int | None, int]:
+    """'D[,M]' -> (D, M); (None, 1) when not given."""
+    if not spec:
+        return None, 1
+    parts = [int(x) for x in spec.split(",")]
+    if len(parts) > 2 or min(parts) < 1:
+        raise ValueError(f"--mesh takes D or D,M with positive sizes, got {spec!r}")
+    return parts[0], (parts[1] if len(parts) > 1 else 1)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -160,45 +292,57 @@ def build_parser() -> argparse.ArgumentParser:
                         "state + epoch; full-dataset runs, -k 1)")
     p.add_argument("--device", default="cuda", type=str,
                    help="cuda (default; raises without a GPU) or cpu")
-    # the JAX CLI's distribution options, refused until the port has them
+    # ---- distribution (parallel/) ----
     p.add_argument("--parallel", default="single",
-                   choices=["single", "dp", "halo"])
-    p.add_argument("--mesh", default=None, type=str, metavar="D[,M]")
+                   choices=["single", "dp", "halo"],
+                   help="single: one device; dp: the minibatch split over the "
+                        "ranks; halo: one union graph a step, its nodes split "
+                        "over the ranks")
+    p.add_argument("--mesh", default=None, type=str, metavar="D[,M]",
+                   help="ranks on the data axis (M > 1, tensor parallelism, "
+                        "is not ported); default: every visible card")
     p.add_argument("--halo_variant", default="p2p",
-                   choices=["p2p", "all_gather"])
-    p.add_argument("--graphs_per_batch", default=None, type=int)
-    p.add_argument("--coordinator", default=None, type=str, metavar="HOST:PORT")
-    p.add_argument("--num_processes", default=None, type=int)
-    p.add_argument("--process_id", default=None, type=int)
+                   choices=["p2p", "all_gather"],
+                   help="halo exchange: p2p = boundary rows only (all_gather "
+                        "when the edges are not local), all_gather = every row")
+    p.add_argument("--graphs_per_batch", default=None, type=int,
+                   help="halo: samples per union graph (default: batch_size)")
+    # ---- one rank per process ----
+    p.add_argument("--coordinator", default=None, type=str, metavar="HOST:PORT",
+                   help="the TCP address rank 0 listens on")
+    p.add_argument("--num_processes", default=None, type=int,
+                   help="world size (start this command once per rank)")
+    p.add_argument("--process_id", default=None, type=int,
+                   help="this process's rank")
     return p
 
 
-def main(argv=None) -> None:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    given = [name for name, default in _DISTRIBUTION_OPTIONS.items()
-             if getattr(args, name) != default]
-    if given:
-        parser.error(
-            f"{', '.join('--' + n for n in given)}: distributed training is "
-            "not ported yet (ROADMAP.md, modules to port, 'Distribution'); "
-            "this port trains on one device")
-    if args.num_folds < 1:
-        parser.error("Number of folds must be a positive integer")
-    if args.resume_from and args.num_folds != 1:
-        parser.error("--resume_from applies to full-dataset runs (-k 1)")
-    args.device = resolve_device(args.device)
+def _load_and_run(args, mesh) -> None:
+    """Read the data and hyperparameters and train: on one device (mesh
+    None) or as the mesh's rank."""
+    from ..parallel.mesh import rank_device
+
     dataset = ImageGraphDataset(os.path.expanduser(args.data_dir),
                                 args.data_prefix, read_image=False,
                                 read_graph=True, read_label=True)
     hp = (random_hyperparameters(args.model_type) if args.random_hyperparams
           else hardcoded_hyperparameters(args.model_type))
     hp = apply_hp_overrides(hp, args.hp)
+    coordinator = True
+    if mesh is not None:
+        import torch.distributed as dist
+
+        box = [hp]                        # one draw of -x for every rank
+        dist.broadcast_object_list(box, src=0)
+        hp = box[0]
+        coordinator = mesh.is_coordinator
+        args.device = rank_device(mesh.rank, args.device)
     args.output_dir = os.path.expanduser(args.output_dir)
     progress_fp = os.path.join(args.output_dir, f"{args.run_name}.txt")
-    folds.create_run_progress_file(progress_fp, args.model_type, hp)
+    if coordinator:
+        folds.create_run_progress_file(progress_fp, args.model_type, hp)
     profiler = contextlib.nullcontext()
-    if args.profile:
+    if args.profile and coordinator:
         activities = [torch.profiler.ProfilerActivity.CPU]
         if args.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -207,10 +351,73 @@ def main(argv=None) -> None:
             on_trace_ready=torch.profiler.tensorboard_trace_handler(
                 os.path.expanduser(args.profile)))
     with profiler:
-        if args.num_folds == 1:
-            train_on_full_dataset(args, hp, progress_fp, dataset)
+        if args.parallel == "halo":
+            _run_halo(args, hp, progress_fp, dataset, mesh)
+        elif args.num_folds == 1:
+            train_on_full_dataset(args, hp, progress_fp, dataset, mesh)
         else:
-            run_k_fold_val(args, hp, progress_fp, dataset, args.num_folds)
+            run_k_fold_val(args, hp, progress_fp, dataset, args.num_folds, mesh)
+
+
+def _run_rank(rank: int, world: int, init_method: str, args) -> None:
+    """One rank: join the process group, train, leave the group."""
+    from ..parallel.mesh import initialize_multihost, shutdown
+
+    if args.device.type == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    mesh = initialize_multihost(init_method, world, rank, device=args.device)
+    try:
+        _load_and_run(args, mesh)
+    finally:
+        shutdown()
+
+
+def main(argv=None) -> None:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.num_folds < 1:
+        parser.error("Number of folds must be a positive integer")
+    if args.resume_from and args.num_folds != 1:
+        parser.error("--resume_from applies to full-dataset runs (-k 1)")
+    try:
+        n_data, n_model = _parse_mesh(args.mesh)
+    except ValueError as e:
+        parser.error(str(e))
+    if n_model != 1:
+        parser.error(
+            f"--mesh {args.mesh}: tensor parallelism (a model axis > 1) is not "
+            "ported yet (ROADMAP.md, modules to port, 'Tensor parallelism'); "
+            "use --mesh D")
+    multi = [n for n in _MULTI_PROCESS_OPTIONS if getattr(args, n) is not None]
+    if args.parallel == "single":
+        if multi or args.mesh:
+            parser.error("--mesh and the multi-process options need "
+                         "--parallel dp or halo")
+        args.device = resolve_device(args.device)
+        _load_and_run(args, None)
+        return
+    args.device = resolve_device(args.device)
+    if multi:
+        if len(multi) != len(_MULTI_PROCESS_OPTIONS):
+            parser.error("--coordinator, --num_processes and --process_id go "
+                         "together")
+        if n_data is not None and n_data != args.num_processes:
+            parser.error(f"--mesh {n_data} does not match --num_processes "
+                         f"{args.num_processes}")
+        _run_rank(args.process_id, args.num_processes,
+                  f"tcp://{args.coordinator}", args)
+        return
+    from ..parallel.mesh import free_port
+
+    world = n_data or (torch.cuda.device_count() if args.device.type == "cuda"
+                       else 1)
+    init = f"tcp://localhost:{free_port()}"
+    if world == 1:
+        _run_rank(0, 1, init, args)
+    else:
+        import torch.multiprocessing as mp
+
+        mp.spawn(_run_rank, args=(world, init, args), nprocs=world, join=True)
 
 
 if __name__ == "__main__":

@@ -42,6 +42,7 @@ from torch import nn
 from ..ops.graph import GraphBatch
 from ..ops.kernels import fused_gat, slot_gather, weighted_sum
 from ..ops.precision import compute_dtype
+from ..runtime import first_cpu_exp
 from .initializers import xavier_uniform
 from .sage import _dropout
 
@@ -110,6 +111,7 @@ class GatConv(nn.Module):
         e = torch.nn.functional.leaky_relu(el_src + er[:, :, None, :], slope)
         e = torch.where(valid > 0, e, _NEG_LARGE)
         e = e - e.amax(dim=2, keepdim=True).detach()
+        first_cpu_exp()
         w = torch.exp(e) * valid.to(e.dtype)
         alpha = w / w.sum(dim=2, keepdim=True).clamp_min(1e-20)
         alpha = _dropout(alpha, attn_drop, generator)

@@ -36,6 +36,7 @@ import os
 import torch
 
 from ...build import build_cuda_library, check_launch
+from ...runtime import first_cpu_exp
 
 __all__ = ["fused_gat_forward", "fused_gat_forward_plain", "fused_gat_backward",
            "fused_gat_backward_plain", "gat_reverse_combine",
@@ -91,7 +92,9 @@ def fused_gat_forward_plain(z, el, er, nbr, nbr_mask, slope, act, res, bias,
     normaliser and the combine summed in slot order with one rounding per
     product and per add, alpha = w * (1 / max(sum, 1e-20)), and the
     epilogue ((combine + bias) + res, then ELU with its exp argument
-    clamped at 0)."""
+    clamped at 0). The process's first CPU exp runs on one thread
+    (runtime.first_cpu_exp) before the first one here."""
+    first_cpu_exp()
     B, N, H, F = z.shape
     D = nbr.shape[2]
     f32 = torch.float32

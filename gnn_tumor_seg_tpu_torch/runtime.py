@@ -1,14 +1,16 @@
-"""Device resolution shared by the port's entry points, and the host
+"""Device resolution shared by the port's entry points, the host
 allocator setting of the preprocessing pipeline (a copy of
-gnn_tumor_seg_tpu/runtime.py's `enable_host_alloc_reuse`)."""
+gnn_tumor_seg_tpu/runtime.py's `enable_host_alloc_reuse`), and the serial
+first call of PyTorch's CPU exp (`first_cpu_exp`)."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "enable_host_alloc_reuse"]
+__all__ = ["resolve_device", "enable_host_alloc_reuse", "first_cpu_exp"]
 
 _alloc_reuse_enabled = False
+_first_exp_done = False
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -23,6 +25,26 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
     return dev
+
+
+def first_cpu_exp() -> None:
+    """Make the process's first float32 `torch.exp` on the CPU on one thread;
+    a no-op after the first call. The plain versions that call `torch.exp`
+    call this first.
+
+    PyTorch computes exp on a contiguous CPU tensor in OpenMP chunks of 2048
+    elements through MKL's vector math. The first such call of a process,
+    made in parallel, has returned one worker's whole chunk wrong by up to
+    1.4e-4 relative (the values are neither MKL's HA, LA nor EP results)
+    after a bf16 CPU convolution and a JAX computation had run in the
+    process; every later call was right, and so was the first one made on a
+    tensor of fewer than 2048 elements, which runs on the calling thread
+    (ROADMAP.md, faults found in the port: the GAT plain forward's first
+    call)."""
+    global _first_exp_done
+    if not _first_exp_done:
+        torch.exp(torch.full((16,), 0.5, dtype=torch.float32))
+        _first_exp_done = True
 
 
 def enable_host_alloc_reuse() -> bool:

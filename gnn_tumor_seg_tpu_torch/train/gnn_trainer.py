@@ -48,13 +48,39 @@ from .losses import weighted_cross_entropy, weighted_cross_entropy_per_graph
 from .optim import (epoch_lr, load_opt_state_leaves, make_optimizer,
                     opt_state_leaves, set_lr)
 
-__all__ = ["GNNTrainer"]
+__all__ = ["GNNTrainer", "restore_training_state"]
 
 _PRECISIONS = ("exact", "fast")
 
 
 def _dropout_seed(seed: int, epoch: int) -> int:
     return int(np.random.SeedSequence([seed + 1, epoch]).generate_state(1)[0])
+
+
+def restore_training_state(path: str, model, optimizer, model_type: str
+                           ) -> int | None:
+    """Load a checkpoint's parameters into `model` (in place, JAX flatten
+    order) and, when it has them, its optimizer state into `optimizer`.
+    Returns the checkpoint's epoch counter, or None."""
+    leaves, ckpt_type, _, manifest = load_checkpoint(path)
+    if ckpt_type != model_type:
+        raise ValueError(f"checkpoint holds a {ckpt_type}, the trainer a "
+                         f"{model_type}")
+    params = model.jax_parameters()
+    if len(leaves) != len(params):
+        raise ValueError(f"checkpoint has {len(leaves)} parameter leaves, "
+                         f"the model {len(params)}")
+    with torch.no_grad():
+        for p, leaf in zip(params, leaves):
+            if tuple(np.shape(leaf)) != tuple(p.shape):
+                raise ValueError(f"checkpoint leaf {np.shape(leaf)} does "
+                                 f"not match a parameter of {tuple(p.shape)}")
+            p.copy_(torch.tensor(np.asarray(leaf, np.float32)))
+    opt = load_opt_state(path)
+    if opt is not None:
+        load_opt_state_leaves(optimizer, opt)
+    epoch = manifest.get("extra", {}).get("epoch")
+    return None if epoch is None else int(epoch)
 
 
 class GNNTrainer:
@@ -121,18 +147,27 @@ class GNNTrainer:
         self.optimizer.step()
         return loss.detach()
 
+    def _dropout_seed(self) -> int:
+        return _dropout_seed(self._seed, self.epoch)
+
+    def _epoch_batches(self, order):
+        """(sample indices, batch size, a sample to copy for padding) of
+        each step of the epoch: consecutive chunks of the shuffled order."""
+        bs = self.hp.batch_size
+        for start in range(0, len(order), bs):
+            idx = order[start:start + bs]
+            yield idx, bs, idx[0]
+
     # ---------------------------------------------------------------- epochs
     def run_epoch(self) -> float:
         """One shuffled pass over the training data; returns the mean batch
         loss."""
         if self.train_data is None:
             raise RuntimeError("trainer constructed without training data")
-        data = self.train_data
-        bs = self.hp.batch_size
         order = np.random.default_rng((self._seed, self.epoch)).permutation(
-            len(data))
+            len(self.train_data))
         generator = torch.Generator(device=self.device).manual_seed(
-            _dropout_seed(self._seed, self.epoch))
+            self._dropout_seed())
         set_lr(self.optimizer, epoch_lr(self.hp.lr, self.hp.lr_decay,
                                         self.epoch))
         n_pad, d_pad = self._shape_budget
@@ -140,13 +175,15 @@ class GNNTrainer:
         edges = 0
         t0 = time.perf_counter()
         with precision_scope(self.precision):
-            for start in range(0, len(order), bs):
+            for idx, size, pad_from in self._epoch_batches(order):
                 graphs = []
-                for i in order[start:start + bs]:
+                for i in idx:
                     graphs.append(self._get_graph(int(i)))
                     edges += self._edge_counts[int(i)]
-                while len(graphs) < bs:   # remainder batch: same shape
-                    graphs.append(masked_copy(graphs[0]))
+                if len(graphs) < size:    # remainder batch: same shape
+                    pad = masked_copy(graphs[0] if graphs
+                                      else self._get_graph(int(pad_from)))
+                    graphs += [pad] * (size - len(graphs))
                 batch = batch_graphs(graphs, n_pad=n_pad, d_pad=d_pad)
                 with torch.profiler.record_function("gnn_train_step"):
                     losses.append(self._step(batch, generator))
@@ -272,26 +309,10 @@ class GNNTrainer:
         """Resume the training state (parameters, optimizer, epoch) from a
         checkpoint of either package; a checkpoint without optimizer state
         restores the parameters and leaves the optimizer as it is."""
-        leaves, model_type, _, manifest = load_checkpoint(path)
-        if model_type != self.model_type:
-            raise ValueError(f"checkpoint holds a {model_type}, the trainer a "
-                             f"{self.model_type}")
-        params = self.model.jax_parameters()
-        if len(leaves) != len(params):
-            raise ValueError(f"checkpoint has {len(leaves)} parameter leaves, "
-                             f"the model {len(params)}")
-        with torch.no_grad():
-            for p, leaf in zip(params, leaves):
-                if tuple(np.shape(leaf)) != tuple(p.shape):
-                    raise ValueError(f"checkpoint leaf {np.shape(leaf)} does "
-                                     f"not match a parameter of {tuple(p.shape)}")
-                p.copy_(torch.tensor(np.asarray(leaf, np.float32)))
-        opt = load_opt_state(path)
-        if opt is not None:
-            load_opt_state_leaves(self.optimizer, opt)
-        epoch = manifest.get("extra", {}).get("epoch")
+        epoch = restore_training_state(path, self.model, self.optimizer,
+                                       self.model_type)
         if epoch is not None:
-            self.epoch = int(epoch)
+            self.epoch = epoch
 
     @classmethod
     def from_checkpoint(cls, path: str, train_data=None, seed: int = 0,

@@ -12,10 +12,13 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["weighted_cross_entropy", "weighted_cross_entropy_per_graph"]
+__all__ = ["weighted_cross_entropy", "weighted_cross_entropy_per_graph",
+           "weighted_nll_terms"]
 
 
-def _weighted_nll(logits, labels, class_weights, mask):
+def weighted_nll_terms(logits, labels, class_weights, mask=None):
+    """(w * nll, w) per element: the weighted mean loss is the first summed
+    over the second summed; the distributed trainers sum each over ranks."""
     labels_safe = labels.long().clamp_min(0)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels_safe[..., None])[..., 0]
@@ -31,7 +34,7 @@ def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                            mask: torch.Tensor | None = None) -> torch.Tensor:
     """logits [..., C], labels [...] int, class_weights [C], mask [...] (1.0
     = real element) -> the weighted-mean loss, a scalar."""
-    wnll, w = _weighted_nll(logits, labels, class_weights, mask)
+    wnll, w = weighted_nll_terms(logits, labels, class_weights, mask)
     return wnll.sum() / w.sum().clamp_min(1e-12)
 
 
@@ -42,5 +45,5 @@ def weighted_cross_entropy_per_graph(logits: torch.Tensor, labels: torch.Tensor,
     """logits [B, N, C] -> [B]: each graph's loss equals
     weighted_cross_entropy on that graph alone (the batched evaluation's
     per-brain loss, `model/gnn_model.py:51-74`)."""
-    wnll, w = _weighted_nll(logits, labels, class_weights, mask)
+    wnll, w = weighted_nll_terms(logits, labels, class_weights, mask)
     return wnll.sum(dim=1) / w.sum(dim=1).clamp_min(1e-12)

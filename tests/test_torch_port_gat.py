@@ -384,3 +384,27 @@ def test_factory_builds_gat_with_jax_layout():
                 continue
             bound = math.sqrt(2.0) * math.sqrt(6.0 / (t.shape[0] + t.shape[1]))
             assert t.abs().max() <= bound and t.abs().max() > 0.5 * bound
+
+
+def test_plain_forward_first_call_after_bf16_conv():
+    """The first fused_gat_forward_plain of a fresh process, after a bf16 CPU
+    convolution and a JAX computation, equals the second call bitwise, and
+    both lie within 1e-5 of a float64 reference (out and alpha). Run in a
+    child process (tests/torch_port_first_exp.py), since only the first call
+    of PyTorch's CPU exp in a process went wrong, so the result here would
+    otherwise depend on which tests ran before on the same worker."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    child = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "torch_port_first_exp.py")
+    proc = subprocess.run([sys.executable, child], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["out_between_calls"] == 0.0, res
+    assert res["alpha_between_calls"] == 0.0, res
+    assert max(res["out_vs_f64"]) <= 1e-5, res
+    assert max(res["alpha_vs_f64"]) <= 1e-5, res

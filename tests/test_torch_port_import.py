@@ -2,7 +2,8 @@
 
 Every module of gnn_tumor_seg_tpu_torch is imported in a fresh interpreter
 in which importing `jax` or `gnn_tumor_seg_tpu` fails, and one CPU training
-epoch and evaluation of GSpool, of GAT and of the refinement CNN run there;
+epoch and evaluation of GSpool, of GAT and of the refinement CNN, and one
+epoch of each distributed trainer on a one-rank gloo group, run there;
 the interpreter must then hold no `jax` and no `gnn_tumor_seg_tpu` module. Importing must also build nothing: the
 kernels are compiled at first use.
 """
@@ -64,6 +65,21 @@ cnn = CNNTrainer(HyperParams(in_feats=8, layer_sizes=[4], batch_size=1), Images(
                  PredLogitDataset(logit_dir), crop_floor=None, device="cpu")
 cnn.run_epoch()
 cnn.evaluate()
+# and the distributed trainers, one rank over a gloo group
+from gnn_tumor_seg_tpu_torch.parallel import halo, mesh as pmesh
+from gnn_tumor_seg_tpu_torch.parallel.dp import ParallelGNNTrainer
+from gnn_tumor_seg_tpu_torch.parallel.halo_trainer import HaloTrainer
+m = pmesh.initialize_multihost("file://" + tempfile.mkdtemp() + "/pg", 1, 0,
+                               device="cpu", timeout_s=60)
+ParallelGNNTrainer("GSpool", HyperParams(layer_sizes=[4], batch_size=2), data,
+                   mesh=m).run_epoch()
+rng = np.random.default_rng(0)
+pg, w = halo.partition_graph_p2p(rng.normal(size=(20, 20)).astype(np.float32),
+                                 np.r_[0:19, 1:20], np.r_[1:20, 0:19],
+                                 np.zeros(20, np.int32), 1)
+HaloTrainer("GSpool", HyperParams(layer_sizes=[4]), [pg], m, variant="p2p",
+            halo_width=w).run_epoch()
+pmesh.shutdown()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "gnn_tumor_seg_tpu"
              or m.startswith("gnn_tumor_seg_tpu."))
@@ -112,6 +128,13 @@ def test_port_imports_no_jax_and_no_jax_package():
         "gnn_tumor_seg_tpu_torch.train.losses",
         "gnn_tumor_seg_tpu_torch.train.optim",
         "gnn_tumor_seg_tpu_torch.convert",
+        "gnn_tumor_seg_tpu_torch.parallel.mesh",
+        "gnn_tumor_seg_tpu_torch.parallel.collectives",
+        "gnn_tumor_seg_tpu_torch.parallel.multihost",
+        "gnn_tumor_seg_tpu_torch.parallel.dp",
+        "gnn_tumor_seg_tpu_torch.parallel.halo",
+        "gnn_tumor_seg_tpu_torch.parallel.halo_data",
+        "gnn_tumor_seg_tpu_torch.parallel.halo_trainer",
     }
     assert expected <= set(result["modules"])
 

@@ -1,7 +1,7 @@
 """cli.train_gnn on the CPU: k-fold and full-dataset runs, resume and profile
 on a tiny preprocessed data directory written by the port's own store and
 NIfTI writer; the progress file has the JAX package's header and rows, and
-the JAX CLI's distribution options are refused; -x draws the JAX package's
+tensor parallelism (--mesh D,M, M > 1) is refused; -x draws the JAX package's
 random configurations.
 """
 
@@ -75,13 +75,18 @@ def test_k_fold_then_resume_full_dataset(data_dir, tmp_path):
     assert any(name.endswith(".json") for name in os.listdir(prof))
 
 
-@pytest.mark.parametrize("flag", [["--parallel", "dp"], ["--mesh", "4"],
-                                  ["--num_processes", "2"]])
-def test_distribution_options_are_refused(data_dir, tmp_path, flag, capsys):
+@pytest.mark.parametrize("flag,says", [
+    (["--parallel", "dp", "--mesh", "2,2"], "not ported yet"),
+    (["--mesh", "4"], "need --parallel dp or halo"),
+    (["--num_processes", "2"], "need --parallel dp or halo")],
+    ids=["flag0", "flag1", "flag2"])
+def test_distribution_options_are_refused(data_dir, tmp_path, flag, says, capsys):
+    """Tensor parallelism (a model axis > 1) is not ported; a mesh or the
+    multi-process options without --parallel dp|halo mean nothing."""
     with pytest.raises(SystemExit):
         train_gnn.main(["-d", data_dir, "-o", str(tmp_path), "-r", "r",
                         "--device", "cpu", *flag])
-    assert "not ported yet" in capsys.readouterr().err
+    assert says in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "r.txt")
 
 
