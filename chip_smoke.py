@@ -21,15 +21,19 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    random tables of the node bucket 8192 (B=1, D=12/16, F=20/256, f32 and
    bf16, with and without the winner-slot store) and at edge cases; then,
    at the training shapes (B=6, N=8192, D=12/16, F=3/20/36/256, f32 and
-   bf16) on random symmetric tables with ties and rows without a neighbour,
+   bf16, and at D=12 F=5/10/64/128, the pool widths of a GSpool layer's
+   column block under tensor parallelism) on random symmetric tables with
+   ties and rows without a neighbour,
    max_agg with its store and as the serve variant (whose out must equal
    the store variant's), max_agg_bwd and sum_agg (sum and mean), also at
    D=12 on a table with holes, with h and gout one element off alignment
    (F=20, 256), at D=128 (F=6, 256) and F=515. Every result must be bitwise
    equal to the plain version's, and two runs of max_agg_bwd and of sum_agg
    bitwise equal to each other. Then the three GAT kernels at the
-   training shapes ((H,F) = (4,256), (3,256), (1,4), and (2,36), (3,6),
-   (1,515) for every vector width of the reverse combine; tied logits,
+   training shapes ((H,F) = (4,256), (3,256), (1,4), at D=12 the
+   head-parallel layers' (2,256) and (1,256) of phase 10, and (2,36), (3,6),
+   (1,515) for
+   every vector width of the reverse combine; tied logits,
    isolated rows, residual and ELU on and off; f32 and bf16) and at D=128,
    H=6, F=2, each table also with holes (real slots after padded ones) for
    the forward and the backward, and z/gout one element off alignment at
@@ -164,7 +168,28 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    bitwise and the three GAT kernels within their phase 3 tolerances of
    their plain versions. Logged with the card: each regime's fast step beside one
    device's (two ranks sharing one card give no scaling number) and the
-   analytic bytes a rank exchanges a step.
+   analytic bytes a rank exchanges a step;
+10. tensor parallelism, on the one card at --mesh 1,2 (two model ranks over
+   gloo, staged): `cli.train_gnn --parallel dp --mesh 1,2 -m GSpool` for 2
+   fast epochs (the loss falls, each rank launches 7 max_agg and 7
+   max_agg_bwd a step on its column blocks, rank 0 alone writes, its
+   checkpoint of the whole model serves on one device), started alongside
+   a world of its own in which GSpool [256]*6 and the hardcoded GAT,
+   through ParallelGNNTrainer.loss_and_grads in "exact" on 2 graphs of the
+   training shape, give logits within DIST_LOGIT_TOL, a loss within 1e-6
+   relative and gathered gradients within DIST_GRAD_TOL of one device's,
+   each rank launching every kernel of the step (the GAT's 4-head layers
+   on 2 heads a rank); each model's fast step timed beside one device's,
+   with the analytic bytes of the model-group collectives;
+11. import, then serve: a DGL-layout GSpool state_dict ([256]*6) and a
+   CnnRefinementNet one, built from seeded arrays and saved with
+   torch.save, converted by `python -m
+   gnn_tumor_seg_tpu_torch.cli.import_torch_weights`; one exact
+   predict_single_mri request with the imported checkpoints (7 max_agg
+   launches) whose labels lie in {0,1,2,4} and equal bitwise those of a
+   request with checkpoints written straight from the same arrays; then
+   viz.helpers.load_plotting_data on that prediction, with no matplotlib
+   imported.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; before it, one JSON line lists the kernels. The last line is
@@ -214,6 +239,15 @@ TRAIN_WIDTHS = [256] * 6
 # max_agg_bwd's vectors, a scalar width and one of vectors of 4 that is no
 # multiple of 8
 TRAIN_KERNEL_WIDTHS = (3, 20, 36, 256)
+# the widths of a GSpool pool layer's column block under tensor parallelism
+# (phase 10): 10 and 128 at M = 2, 5 and 64 at M = 4
+TP_KERNEL_WIDTHS = (5, 10, 64, 128)
+# the max-aggregation widths of phase 10's path (M = 2), timed in phase 7
+TP_WIDTHS = (IN_FEATS // 2, TRAIN_WIDTHS[0] // 2)
+# the hardcoded GAT's head-parallel layers under tensor parallelism: its
+# 4-head layers hold 2 heads a rank at M = 2 and 1 at M = 4 ((H, F,
+# activation, residual), as gat_layers())
+TP_GAT_LAYERS = [(2, 256, "elu", False), (1, 256, "elu", False)]
 
 
 class SmokeFailure(RuntimeError):
@@ -455,7 +489,8 @@ def phase_train_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
                              B=TRAIN_BATCH) -> dict:
     """The training kernels against their plain versions on the card at the
     training shapes (B=6, N=8192 of which 7000 real, D=12/16, f32 and bf16)
-    at F = 3, 20, 36, 256 (vectors of 1, 4, 4 and 4 in f32 or 8 in bf16),
+    at TRAIN_KERNEL_WIDTHS (vectors of 1 to 4 in f32 or 8 in bf16) and, at
+    D=12, at TP_KERNEL_WIDTHS,
     on random symmetric tables with ties and rows without a neighbour:
     max_agg with its winner-slot store, its serve variant (out bitwise equal
     to the store variant's), max_agg_bwd, and sum_agg (sum and mean),
@@ -490,7 +525,7 @@ def phase_train_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
             shape = (B, N, F)
             # quarter steps: many exact ties among neighbours, exact in bf16
             ties = torch.from_numpy(rng.integers(-8, 8, shape) / 4.0).float().to(dev)
-            gout32 = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+            gout32 = randn_on(rng, shape, dev)
             for dtype in (torch.float32, torch.bfloat16):
                 tag = (f"B={B} N={N} D={D} F={F} {str(dtype)[6:]}"
                        + " holed" * holes + " misaligned" * shift)
@@ -526,6 +561,7 @@ def phase_train_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
 
     for D in (12, 16):
         run_case(B, N, D, n_real, TRAIN_KERNEL_WIDTHS)
+    run_case(B, N, 12, n_real, TP_KERNEL_WIDTHS)
     # real slots after padded ones
     run_case(B, N, 12, n_real, TRAIN_KERNEL_WIDTHS, holes=True)
     # h and gout one element off alignment: vectors of 1
@@ -572,18 +608,26 @@ def within(got, want, bf16_ulp=False) -> float:
     return diff.max().item() / max(want.float().abs().max().item(), 1e-30)
 
 
+def randn_on(rng, shape, dev) -> torch.Tensor:
+    """Standard normal float32 values of `shape` drawn on `dev` from a torch
+    generator seeded from `rng`: at the training shapes a draw on the card
+    costs far less than numpy's on the host and its copy."""
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 62)))
+    return torch.randn(shape, generator=gen, device=dev)
+
+
 def gat_inputs(rng, B, N, H, F, dtype, dev):
     """z, el, er, res, bias, gout of one layer. el and er are quarter steps,
     so many logits tie and many pre-activations are exactly 0 (LeakyReLU'
     takes the >= 0 branch there)."""
     def t(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(dtype)
-    return {"z": t(rng.normal(size=(B, N, H, F))),
+    return {"z": randn_on(rng, (B, N, H, F), dev).to(dtype),
             "el": t(rng.integers(-8, 8, (B, N, H)) / 4.0),
             "er": t(rng.integers(-8, 8, (B, N, H)) / 4.0),
-            "res": t(rng.normal(size=(B, N, H * F))),
-            "bias": t(rng.normal(size=(H * F,))),
-            "gout": t(rng.normal(size=(B, N, H, F)))}
+            "res": randn_on(rng, (B, N, H * F), dev).to(dtype),
+            "bias": randn_on(rng, (H * F,), dev).to(dtype),
+            "gout": randn_on(rng, (B, N, H, F), dev).to(dtype)}
 
 
 def punch_holes(rng, nbr, mask, rslot, frac=0.15):
@@ -612,7 +656,8 @@ def misaligned(t: torch.Tensor) -> torch.Tensor:
 def phase_gat_kernel_check(dev, N=8192, n_real=TRAIN_NODES, B=TRAIN_BATCH) -> dict:
     """The three fused GAT kernels against their plain versions on the card
     at the training shapes (B=6, N=8192 of which 7000 real, D=12/16, the
-    hardcoded GAT's (H,F) and GAT_VECTOR_SHAPES, f32 and bf16), on random
+    hardcoded GAT's (H,F), at D=12 its head-parallel layers'
+    (TP_GAT_LAYERS), and GAT_VECTOR_SHAPES, f32 and bf16), on random
     symmetric tables with isolated rows, with tied logits, residual and ELU
     on and off: the forward within GAT_FWD_TOL (bf16 output: 1 ulp beyond
     it), its sign mask bitwise, the serve variant (no stores) bitwise equal
@@ -705,7 +750,9 @@ def phase_gat_kernel_check(dev, N=8192, n_real=TRAIN_NODES, B=TRAIN_BATCH) -> di
 
     for D in (12, 16):
         nbr, rslot, mask, holed = tables(B, N, D, n_real)
-        for H, F in head_shapes + GAT_VECTOR_SHAPES:
+        # the head-parallel layers of phase 10 on the D=12 tables
+        tp_shapes = gat_head_shapes(TP_GAT_LAYERS) if D == 12 else []
+        for H, F in head_shapes + tp_shapes + GAT_VECTOR_SHAPES:
             for dtype in (torch.float32, torch.bfloat16):
                 run_case("packed", nbr, mask, rslot, B, N, H, F, dtype)
                 run_case("holes", nbr, holed, rslot, B, N, H, F, dtype, rev=False)
@@ -764,6 +811,8 @@ def phase_decomposed_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
     worst_abs = dict(worst)
 
     def t(a, dtype=torch.float32):
+        if isinstance(a, torch.Tensor):
+            return a.to(dev, dtype)
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(dtype)
 
     def same(kernel, got, want, again, tag):
@@ -798,9 +847,9 @@ def phase_decomposed_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
                             for a in (nbr_np, mask_np, rslot_np))
         table = "holed " if holes else ""
         for H, F in shapes:
-            w = t(rng.normal(size=(B, N, D, H)))     # padded slots too
-            v32 = rng.normal(size=(B, N, H, F))
-            g32 = rng.normal(size=(B, N, H, F))
+            w = randn_on(rng, (B, N, D, H), dev)     # padded slots too
+            v32 = randn_on(rng, (B, N, H, F), dev)
+            g32 = randn_on(rng, (B, N, H, F), dev)
             for dtype in dtypes:
                 tag = f"{table}B={B} N={N} D={D} H={H} F={F} {str(dtype)[6:]}"
                 values, gout = t(v32, dtype), t(g32, dtype)
@@ -825,8 +874,8 @@ def phase_decomposed_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
                     + f"{done} {PAIRDOT_TOL} and +0.0 on padded slots, "
                     f"kernels deterministic")
         for W in widths:
-            x32 = rng.normal(size=(B, N, W))
-            g32 = rng.normal(size=(B, N, D, W))
+            x32 = randn_on(rng, (B, N, W), dev)
+            g32 = randn_on(rng, (B, N, D, W), dev)
             for dtype in dtypes:
                 tag = f"{table}B={B} N={N} D={D} W={W} {str(dtype)[6:]}"
                 x, gout = t(x32, dtype), t(g32, dtype)
@@ -2124,7 +2173,8 @@ def library_bag_inputs(h, nbr, mask):
 
 def phase_train_timing(dataset, card) -> dict:
     """Per kernel at the flagship batch's own table (B=6, N=8192, D=12,
-    F=20 and 256, f32 and bf16): device ms per launch (CUDA-graph replay),
+    F=20 and 256, and phase 10's TP_WIDTHS, f32 and bf16): device ms per
+    launch (CUDA-graph replay),
     the plain version's, the library yardstick's and the byte bound, plus
     the train step. These launches come after the main path's counts were
     read and are not part of them."""
@@ -2149,7 +2199,7 @@ def phase_train_timing(dataset, card) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         es = torch.empty((), dtype=dtype).element_size()
-        for F in (IN_FEATS, TRAIN_WIDTHS[0]):
+        for F in (IN_FEATS, TRAIN_WIDTHS[0], *TP_WIDTHS):
             shape = (B, N, F)
             h = torch.relu(torch.randn(shape, generator=gen, device=dev)).to(dtype)
             gout = torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -2247,7 +2297,8 @@ def gat_library_inputs(z, alpha, nbr, mask):
 
 def phase_gat_timing(dataset, card) -> dict:
     """The three fused GAT kernels at the training batch's own table (B=6,
-    N=8192, D=12) and the hardcoded GAT's layer shapes, f32 and bf16:
+    N=8192, D=12) and the hardcoded GAT's layer shapes, with phase 10's
+    head-parallel (2, 256), f32 and bf16:
     device ms per launch (CUDA-graph replay) of the forward as training runs
     it (alpha and sign mask stored) and as serving runs it, the backward and
     the reverse combine; each beside its plain version and its byte bound.
@@ -2275,6 +2326,7 @@ def phase_gat_timing(dataset, card) -> dict:
     # is 0 on the others)
     live_rows = int((mask > 0).any(dim=2).sum())
     layers = gat_layers()
+    timed_layers = layers + TP_GAT_LAYERS[:1]      # and phase 10's (2, 256)
     rng = np.random.default_rng(SEED + 3)
     aten = torch.ops.aten
     rows = {}
@@ -2284,7 +2336,7 @@ def phase_gat_timing(dataset, card) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         es = torch.empty((), dtype=dtype).element_size()
-        for H, F in gat_head_shapes(layers):
+        for H, F in gat_head_shapes(timed_layers):
             x = gat_inputs(rng, B, N, H, F, dtype, dev)
             z, gout = x["z"], x["gout"]
             HF, DH = H * F, D * H
@@ -2335,7 +2387,7 @@ def phase_gat_timing(dataset, card) -> dict:
             ref_rows = referenced * HF * es
             fwd_in = ref_rows + 2 * B * N * H * es + 2 * table + HF * es
             timings = {}
-            for act, with_res in sorted({(a, r) for h, f, a, r in layers
+            for act, with_res in sorted({(a, r) for h, f, a, r in timed_layers
                                          if (h, f) == (H, F)}, key=str):
                 res = x["res"] if with_res else None
                 args = (z, x["el"], x["er"], nbr, mask, 0.2, act, res, x["bias"])
@@ -2567,6 +2619,22 @@ def per_step(rows, parts, dtype="float32") -> dict:
         out[k] = (None if any(v is None for _, v in vals)
                   else sum(n * v for n, v in vals))
     return out
+
+
+def tp_rows(rows, kname) -> dict:
+    """A max kernel's f32 timing rows at phase 10's widths (TP_WIDTHS)."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    return {f"F={F}": {k: rows[(kname, "float32", F)][k] for k in keys}
+            for F in TP_WIDTHS}
+
+
+def gat_tp_rows(gtime, kname) -> dict:
+    """A GAT kernel's f32 timing row at phase 10's head-parallel shape."""
+    H, F, act, res = TP_GAT_LAYERS[0]
+    key = (kname, "float32", H, F, *((act, res) if kname == "gat_fwd"
+                                     else (None, False)))
+    return {f"(H,F)=({H},{F})": {k: gtime["rows"][key][k] for k in
+                                 ("ms", "plain_ms", "library_ms", "bound_ms")}}
 
 
 # ---------------------------------------------------------------------------
@@ -3382,6 +3450,364 @@ def phase_train_dist(data_dir: str, tmp: str, card: str, device="cuda") -> dict:
             "dp_err": {"logits": logit_err, "grads": grad_err}}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: tensor parallelism, two model ranks on the one card
+# ---------------------------------------------------------------------------
+
+TP_BATCH = 2              # graphs of the training shape in the parity batch
+
+
+def tp_collective_bytes(model_type, B, N, n_model, nbytes) -> dict:
+    """Analytic bytes a rank receives over its model group in one training
+    step of `model_type` at the training configuration, B graphs of N rows,
+    activations of `nbytes`: an all-gather of a [B, N, W] tensor brings
+    (M - 1) / M of it, a ring all-reduce of one 2 (M - 1) / M. A GSpool
+    layer (in a, out b) gathers its aggregate (a % M == 0) and its output
+    (b % M == 0) and all-reduces the gradient of its input (either split)
+    and of its aggregate (b split); a GAT layer whose heads divide gathers
+    its [B, N, H*F] output and all-reduces its input's gradient."""
+    from gnn_tumor_seg_tpu_torch.models.factory import init_graph_net
+
+    model = init_graph_net(model_type, _train_hp(model_type))
+    frac = (n_model - 1) / n_model
+    gather = reduce = 0.0
+    for layer in model.layers:
+        if model_type == "GAT":
+            if layer.num_heads % n_model == 0:
+                gather += frac * layer.w.shape[1]
+                reduce += 2 * frac * layer.w.shape[0]
+            continue
+        a, b = layer.w_self.shape
+        pool, out = a % n_model == 0, b % n_model == 0
+        gather += frac * (a * pool + b * out)
+        reduce += 2 * frac * (a * (pool or out) + a * out)
+    scale = B * N * nbytes
+    return {"all_gather_bytes": int(gather * scale),
+            "all_reduce_bytes": int(reduce * scale),
+            "step_bytes_per_rank": int((gather + reduce) * scale)}
+
+
+def _tp_parity_rank(rank, world, init, data_dir, out_dir, device, timed):
+    """A rank of the (1, 2) mesh. In "exact", through ParallelGNNTrainer's
+    own loss_and_grads, for GSpool [256]*6 and the hardcoded GAT on the
+    first TP_BATCH graphs: the loss, the logits, the gradients gathered
+    whole and each rank's launches. With `timed`, the fast step."""
+    sys.path.insert(0, ROOT)
+    from gnn_tumor_seg_tpu_torch.data.dataset import ImageGraphDataset
+    from gnn_tumor_seg_tpu_torch.ops.graph import batch_graphs
+    from gnn_tumor_seg_tpu_torch.ops.precision import precision_scope
+    from gnn_tumor_seg_tpu_torch.parallel.collectives import (gather_leaf,
+                                                              launches_by_rank)
+    from gnn_tumor_seg_tpu_torch.parallel.dp import ParallelGNNTrainer
+    from gnn_tumor_seg_tpu_torch.parallel.mesh import initialize_multihost, shutdown
+
+    mesh = initialize_multihost(init, world, rank, device=device, n_model=world,
+                                timeout_s=120)
+    dev = mesh.device
+    out = {"backend": np.asarray(mesh.backend), "staged": np.asarray(mesh.staged)}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    try:
+        dataset = ImageGraphDataset(data_dir, read_image=False)
+        for model_type in ("GSpool", "GAT"):
+            hp = _train_hp(model_type)
+            hp.batch_size = TP_BATCH
+            tr = ParallelGNNTrainer(model_type, hp, dataset, seed=SEED, mesh=mesh,
+                                    precision="exact")
+            n_pad, d_pad = tr._shape_budget
+            batch = batch_graphs([dataset.get_graph(i) for i in range(TP_BATCH)],
+                                 n_pad=n_pad, d_pad=d_pad).to(dev)
+            with launches_by_rank(mesh) as counts, precision_scope("exact"):
+                loss = tr.loss_and_grads(batch)
+                sync()
+            out[f"{model_type}/launches"] = np.asarray(json.dumps(counts))
+            out[f"{model_type}/loss"] = np.float64(loss.item())
+            with torch.no_grad(), precision_scope("exact"):
+                out[f"{model_type}/logits"] = tr.model(batch, train=True).cpu().numpy()
+            for i, (p, ax) in enumerate(zip(tr.model.jax_parameters(), tr._tp_axes)):
+                g = p.grad if ax is None else gather_leaf(p.grad, ax, mesh)
+                out[f"{model_type}/grad/{i}"] = g.cpu().numpy()
+            out[f"{model_type}/axes"] = np.asarray(
+                [-1 if a is None else a for a in tr._tp_axes])
+            if timed:
+                gen = torch.Generator(device=dev).manual_seed(SEED)
+                ms = []
+                for i in range(DIST_TIMED_STEPS + 2):
+                    sync()
+                    t = time.perf_counter()
+                    with precision_scope("fast"):
+                        tr._step(batch, gen)
+                    sync()
+                    if i >= 2:
+                        ms.append((time.perf_counter() - t) * 1e3)
+                out[f"{model_type}/step_ms"] = np.asarray(ms)
+            del tr, batch
+        np.savez(os.path.join(out_dir, f"tp_r{rank}.npz"), **out)
+    finally:
+        shutdown()
+
+
+def phase_train_tp(data_dir: str, tmp: str, card: str, device="cuda") -> dict:
+    """Tensor parallelism on the one card (mesh (1, 2): two model ranks,
+    gloo, staged through host memory): `cli.train_gnn --parallel dp --mesh
+    1,2 -m GSpool` for 2 fast epochs, started alongside a parity world of
+    its own in which GSpool [256]*6 and the hardcoded GAT, through
+    ParallelGNNTrainer.loss_and_grads in "exact" on TP_BATCH graphs of the
+    training shape, give logits within DIST_LOGIT_TOL, a loss within 1e-6
+    relative and gathered gradients within DIST_GRAD_TOL of one device's on
+    the same batch, each rank launching every kernel of the step. On the
+    card, each model's fast step (median of DIST_TIMED_STEPS) beside one
+    device's, and the analytic bytes of the model-group collectives."""
+    import torch.multiprocessing as mp
+
+    from gnn_tumor_seg_tpu_torch.data.dataset import ImageGraphDataset
+    from gnn_tumor_seg_tpu_torch.ops.graph import batch_graphs
+    from gnn_tumor_seg_tpu_torch.ops.precision import precision_scope
+    from gnn_tumor_seg_tpu_torch.parallel.mesh import free_port
+    from gnn_tumor_seg_tpu_torch.train.gnn_trainer import GNNTrainer
+    from gnn_tumor_seg_tpu_torch.train.losses import weighted_cross_entropy
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(tmp, "tp_logs")
+    par_dir = os.path.join(tmp, "tp_parity")
+    os.makedirs(out_dir)
+    os.makedirs(par_dir)
+    run = "tp_1x2"
+    argv = dist_cli_argv(data_dir, out_dir, run, "GSpool", "dp", "1,2",
+                         DIST_EPOCHS, device, None)
+    log_path = os.path.join(out_dir, f"{run}.out")
+    started = {run: (start_dist_run(argv, 2, False, log_path), log_path)}
+    timed = device == "cuda"
+    try:
+        ctx = mp.start_processes(
+            _tp_parity_rank, nprocs=2, join=False, start_method="spawn",
+            args=(2, f"tcp://localhost:{free_port()}", data_dir, par_dir, device,
+                  timed))
+        end = time.perf_counter() + DIST_DEADLINE_S
+        try:
+            while not ctx.join(timeout=1.0):
+                check(time.perf_counter() < end,
+                      f"TP parity ranks still running after {DIST_DEADLINE_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+    finally:
+        wait_dist_runs(started, DIST_DEADLINE_S)
+    t_world = time.perf_counter() - t0
+    cli = check_dist_run(data_dir, out_dir, run, "GSpool", 2, DIST_EPOCHS, card,
+                         device, "GSpool --parallel dp --mesh 1,2 (tensor "
+                         "parallelism: 2 model ranks)")
+    ranks = [dict(np.load(os.path.join(par_dir, f"tp_r{r}.npz"))) for r in range(2)]
+    check(str(ranks[0]["backend"]) == "gloo" and
+          bool(ranks[0]["staged"]) == (device == "cuda"),
+          f"two model ranks on one device ran over {ranks[0]['backend']}, "
+          f"staged {ranks[0]['staged']}")
+    dataset = ImageGraphDataset(data_dir, read_image=False)
+    errs, launches, timing, nbytes = {}, dict(NO_LAUNCHES), {}, {}
+    for model_type in ("GSpool", "GAT"):
+        hp = _train_hp(model_type)
+        hp.batch_size = TP_BATCH
+        single = GNNTrainer(model_type, hp, dataset, seed=SEED, precision="exact",
+                            device=device)
+        n_pad, d_pad = single._shape_budget
+        batch = batch_graphs([dataset.get_graph(i) for i in range(TP_BATCH)],
+                             n_pad=n_pad, d_pad=d_pad).to(device)
+        with precision_scope("exact"):
+            logits = single.model(batch, train=True)
+            loss = weighted_cross_entropy(logits, batch.labels,
+                                          single.class_weights, batch.node_mask)
+            grads = [g.cpu() for g in torch.autograd.grad(
+                loss, single.model.jax_parameters())]
+        logits = logits.detach().cpu()
+        err = {"logits": max(within(torch.from_numpy(r[f"{model_type}/logits"]),
+                                    logits) for r in ranks),
+               "loss": max(abs(float(r[f"{model_type}/loss"]) - loss.item())
+                           for r in ranks) / abs(loss.item()),
+               "grads": max(within(torch.from_numpy(r[f"{model_type}/grad/{j}"]), g)
+                            for r in ranks for j, g in enumerate(grads))}
+        errs[model_type] = err
+        sharded = int((ranks[0][f"{model_type}/axes"] >= 0).sum())
+        check(err["logits"] <= DIST_LOGIT_TOL and err["loss"] <= 1e-6
+              and err["grads"] <= DIST_GRAD_TOL,
+              f"TP {model_type} (1, 2) against one device: logits "
+              f"{err['logits']:.3g}, loss {err['loss']:.3g} relative, gradients "
+              f"{err['grads']:.3g} of their largest entries "
+              f"({sharded} of {len(grads)} leaves sharded)")
+        per_step = {k: (v if device == "cuda" else 0)
+                    for k, v in dist_step_launches(model_type).items()}
+        want = {**NO_LAUNCHES, **per_step}
+        for r, counts in enumerate(json.loads(str(ranks[0][f"{model_type}/launches"]))):
+            check(counts == want, f"TP {model_type} rank {r}: launches {counts}, "
+                                  f"expected {want}")
+            for k, v in counts.items():
+                launches[k] += v
+        nbytes[model_type] = {
+            "f32": tp_collective_bytes(model_type, TP_BATCH, n_pad, 2, 4),
+            "bf16": tp_collective_bytes(model_type, TP_BATCH, n_pad, 2, 2)}
+        if timed:
+            timing[f"tp_1x2_ms/{model_type}"] = float(
+                np.median(ranks[0][f"{model_type}/step_ms"]))
+            timing[f"single_ms/{model_type}"] = _time_single_step(
+                model_type, batch, device)
+        del single, batch, logits, grads
+        log(f"[tp] {model_type} (1, 2), exact, through loss_and_grads: logits "
+            f"{err['logits']:.3g}, loss {err['loss']:.3g}, gradients "
+            f"{err['grads']:.3g} of one device's ({sharded} of "
+            f"{len(ranks[0][f'{model_type}/axes'])} leaves sharded); per rank "
+            f"{per_step}; card: {card}")
+    for k, v in cli["launches"].items():
+        launches[k] += v
+    for k, v in nbytes.items():
+        log(f"[tp] model-group collectives per rank and step (analytic, "
+            f"B={TP_BATCH}, N={n_pad}, M=2): {k} f32 {json.dumps(v['f32'])}, "
+            f"bf16 {json.dumps(v['bf16'])}")
+    if timing:
+        log("[tp] fast step, median of " f"{DIST_TIMED_STEPS} (ms; two ranks share "
+            "one card over gloo with host-staged collectives, so these are no "
+            "scaling numbers): " + json.dumps({k: round(v, 3)
+                                               for k, v in timing.items()})
+            + f"; card: {card}")
+    log(f"[tp] phase 10: CLI run and parity world at once in {t_world:.1f} s, "
+        f"whole phase {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return {"launches": launches, "errs": errs, "timing": timing,
+            "bytes": nbytes, "cli": cli}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: reference torch weights imported, then served
+# ---------------------------------------------------------------------------
+
+
+def reference_state_dicts(rng):
+    """A DGL-layout GSpool state_dict (layers.{i}.fc_pool/fc_self/fc_neigh/
+    bias, IN_FEATS -> GNN_WIDTHS -> 4) and a CnnRefinementNet one (8 -> 16
+    -> 4, 5^3 kernels), torch tensors from seeded numpy at xavier / conv
+    init scales; and the same arrays in the port's own layout ([in, out]
+    Linear weights, DHWIO convolutions), transposed here."""
+    def arr(shape, fan):
+        return rng.normal(scale=fan ** -0.5, size=shape).astype(np.float32)
+
+    dims = [IN_FEATS, *GNN_WIDTHS, 4]
+    gnn_sd, gnn_params = {}, []
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        w_pool, b_pool = arr((a, a), a), arr((a,), a)
+        w_self, w_neigh, bias = arr((b, a), a), arr((b, a), a), arr((b,), a)
+        pre = f"layers.{i}."
+        gnn_sd.update({pre + "fc_pool.weight": w_pool, pre + "fc_pool.bias": b_pool,
+                       pre + "fc_self.weight": w_self,
+                       pre + "fc_neigh.weight": w_neigh, pre + "bias": bias})
+        gnn_params.append({"w_pool": w_pool.T, "b_pool": b_pool,
+                           "w_self": w_self.T, "w_neigh": w_neigh.T, "bias": bias})
+    w0, b0 = arr((16, 8, 5, 5, 5), 8 * 125), arr((16,), 8 * 125)
+    w1, b1 = arr((4, 16, 5, 5, 5), 16 * 125), arr((4,), 16 * 125)
+    cnn_sd = {"conv_layers.0.weight": w0, "conv_layers.0.bias": b0,
+              "conv_layers.1.weight": w1, "conv_layers.1.bias": b1}
+    cnn_params = {"conv0": {"w": w0.transpose(2, 3, 4, 1, 0), "b": b0},
+                  "conv1": {"w": w1.transpose(2, 3, 4, 1, 0), "b": b1}}
+    as_torch = lambda sd: {k: torch.from_numpy(v) for k, v in sd.items()}  # noqa: E731
+    return as_torch(gnn_sd), gnn_params, as_torch(cnn_sd), cnn_params
+
+
+def phase_import_serve(inputs, card, device="cuda", num_nodes=NUM_NODES,
+                       shape=BRAIN_SHAPE) -> dict:
+    """Reference torch weights into a serve request: the two state_dicts of
+    reference_state_dicts saved with torch.save and converted by
+    `python -m gnn_tumor_seg_tpu_torch.cli.import_torch_weights` (two
+    commands at once); then one exact predict_single_mri request on the
+    brain of `inputs` with the imported checkpoints (7 max_agg launches),
+    whose labels must lie in {0, 1, 2, 4} and equal bitwise those of a
+    request with checkpoints written by save_checkpoint straight from the
+    same arrays; then viz.helpers.load_plotting_data on that prediction,
+    numpy only (no matplotlib imported)."""
+    from gnn_tumor_seg_tpu_torch.cli.common import (load_cnn_from_checkpoint,
+                                                    load_gnn_from_checkpoint,
+                                                    resolve_slic_fn)
+    from gnn_tumor_seg_tpu_torch.cli.predict_single import predict_single_mri
+    from gnn_tumor_seg_tpu_torch.config import HyperParams
+    from gnn_tumor_seg_tpu_torch.convert import cnn_params_from_jax, gnn_params_from_jax
+    from gnn_tumor_seg_tpu_torch.data import nifti
+    from gnn_tumor_seg_tpu_torch.ops.precision import precision_scope
+    from gnn_tumor_seg_tpu_torch.train.checkpoint import save_checkpoint
+    from gnn_tumor_seg_tpu_torch.viz.helpers import load_plotting_data
+
+    t0 = time.perf_counter()
+    in_dir = inputs[0]
+    d = os.path.join(os.path.dirname(in_dir), "import")
+    os.makedirs(d)
+    gnn_sd, gnn_params, cnn_sd, cnn_params = reference_state_dicts(
+        np.random.default_rng(SEED + 11))
+    ckpts = {"imported": {}, "direct": {}}
+    procs = []
+    for name, sd, model_type in (("gnn", gnn_sd, "GSpool"), ("cnn", cnn_sd, "CNN")):
+        pt = os.path.join(d, f"{name}.pt")
+        torch.save(sd, pt)
+        ckpts["imported"][name] = os.path.join(d, f"{name}_imported.ckpt")
+        cmd = [sys.executable, "-m", "gnn_tumor_seg_tpu_torch.cli.import_torch_weights",
+               "-i", pt, "-o", ckpts["imported"][name], "-t", model_type]
+        procs.append((cmd, subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    hp = HyperParams(in_feats=IN_FEATS, out_classes=4, layer_sizes=list(GNN_WIDTHS))
+    ckpts["direct"]["gnn"] = os.path.join(d, "gnn_direct.ckpt")
+    save_checkpoint(ckpts["direct"]["gnn"], gnn_params_from_jax(gnn_params),
+                    "GSpool", hp)
+    ckpts["direct"]["cnn"] = os.path.join(d, "cnn_direct.ckpt")
+    save_checkpoint(ckpts["direct"]["cnn"], cnn_params_from_jax(cnn_params), "CNN",
+                    HyperParams(in_feats=8, out_classes=4, layer_sizes=[16],
+                                batch_size=1))
+    for cmd, proc in procs:
+        text, _ = proc.communicate(timeout=300)
+        check(proc.returncode == 0, f"{' '.join(cmd[2:4])} exited "
+                                    f"{proc.returncode}:\n{text[-3000:]}")
+        log(f"[import] {text.strip().splitlines()[-1]}")
+    t_import = time.perf_counter() - t0
+    preds, launches = {}, dict(NO_LAUNCHES)
+    for which, paths in ckpts.items():
+        gnn, _, gnn_forward = load_gnn_from_checkpoint(paths["gnn"], device=device)
+        _, _, cnn_forward = load_cnn_from_checkpoint(paths["cnn"], device=device)
+        read = _reset_counts()
+        t = time.perf_counter()
+        with precision_scope("exact"):
+            pred = predict_single_mri(in_dir, gnn_forward, cnn_forward,
+                                      num_nodes=num_nodes,
+                                      slic_fn=resolve_slic_fn("native"))
+        wall = time.perf_counter() - t
+        counts = read()
+        for k, v in counts.items():
+            launches[k] += v
+        if torch.device(device).type == "cuda":
+            check(counts == {**NO_LAUNCHES, "max_agg": gnn.num_layers},
+                  f"{which} request launched {counts}")
+        labels = set(np.unique(pred).tolist())
+        check(pred.shape == tuple(shape) and labels <= {0, 1, 2, 4},
+              f"{which} request: {pred.shape}, labels {labels}")
+        preds[which] = pred
+        log(f"[import] {which} checkpoints: exact request {wall:.3f} s, launches "
+            f"{ {k: v for k, v in counts.items() if v} }, labels {sorted(labels)}; "
+            f"card: {card}")
+    differ = int((preds["imported"] != preds["direct"]).sum())
+    check(differ == 0, f"imported-weights labels differ from the directly "
+                       f"written ones in {differ} voxels")
+    seg_dir = os.path.join(d, "preds")
+    os.makedirs(seg_dir)
+    mri_id = os.path.basename(in_dir)
+    nifti.save_as_nifti(preds["imported"], os.path.join(seg_dir, f"{mri_id}.nii.gz"))
+    mod1, mod2, overlay, _ = load_plotting_data(os.path.dirname(in_dir), seg_dir,
+                                                mri_id, read_labels=False)
+    zoomed = (190, 190, shape[2]) if min(shape[:2]) >= 220 else tuple(shape)
+    check(mod1.shape == zoomed and overlay.shape == zoomed + (3,),
+          f"plotting data {mod1.shape}, overlay {overlay.shape}")
+    check(not any(m.split(".")[0] == "matplotlib" for m in sys.modules),
+          "viz.helpers.load_plotting_data imported matplotlib")
+    log(f"[import] labels of the imported checkpoints bitwise those of the "
+        f"directly written ones; overlay {overlay.shape} with numpy only; "
+        f"imports {t_import:.1f} s, phase 11 {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "seconds": time.perf_counter() - t0}
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3391,6 +3817,12 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import gnn_tumor_seg_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    with contextlib.ExitStack() as stack:
+        return run_phases(stack)
+
+
+def run_phases(stack: contextlib.ExitStack) -> int:
+    """Every phase in order; temporary directories close with `stack`."""
     t_all = time.perf_counter()
 
     def done(phases):
@@ -3407,13 +3839,14 @@ def main() -> int:
     dec_worst = phase_decomposed_kernel_check(dev)
     check_gat_dropout_trains(dev)
     done("phase 3")
-    with tempfile.TemporaryDirectory(prefix="gts_smoke_serve_") as serve_tmp:
-        inputs = write_inputs(serve_tmp, BRAIN_SHAPE)
-        serve = phase_serve("cuda", card=card, inputs=inputs)
-        done("phase 4")
-        deviceprep = phase_serve_deviceprep("cuda", inputs, card,
-                                            host_run=serve["profile"])
-        done("phase 4b")
+    serve_tmp = stack.enter_context(
+        tempfile.TemporaryDirectory(prefix="gts_smoke_serve_"))
+    inputs = write_inputs(serve_tmp, BRAIN_SHAPE)
+    serve = phase_serve("cuda", card=card, inputs=inputs)
+    done("phase 4")
+    deviceprep = phase_serve_deviceprep("cuda", inputs, card,
+                                        host_run=serve["profile"])
+    done("phase 4b")
     timing = phase_timing(serve["graph"], card)
     done("phase 5")
     worst = max(worst, timing["max_abs_err"], train_worst["max_agg"])
@@ -3441,15 +3874,21 @@ def main() -> int:
         pipe = phase_pipeline(tmp, card)
         done("phase 8")
         dist = phase_train_dist(train["data_dir"], tmp, card)
-    done("phase 9")
+        done("phase 9")
+        tp = phase_train_tp(train["data_dir"], tmp, card)
+    done("phase 10")
+    imported = phase_import_serve(inputs, card)
+    done("phase 11")
     paths = {"train": train["runs"], "preprocess_weighted": {"prep": prep["run"]},
              "train_weighted": weighted["runs"], "train_gat_attndrop": drop["runs"]}
     by_path = {path: {k: sum(r["counts"][k] for r in runs.values())
                       for k in NO_LAUNCHES} for path, runs in paths.items()}
     by_path["train_dist"] = dist["launches"]
+    by_path["train_tp"] = tp["launches"]
     train_launches = {k: sum(c[k] for c in by_path.values()) for k in NO_LAUNCHES}
-    dl = dist["launches"]
-    one_dev = {k: train_launches[k] - dl[k] for k in NO_LAUNCHES}
+    dl, tl = dist["launches"], tp["launches"]
+    one_dev = {k: train_launches[k] - dl[k] - tl[k] for k in NO_LAUNCHES}
+    il = imported["launches"]
     for k, n in train_launches.items():
         check(n > 0, f"{k} was never launched on the training paths")
     rows = ttime["rows"]
@@ -3468,12 +3907,15 @@ def main() -> int:
         "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/max_agg.cu",
         "replaces": "gnn_tumor_seg_tpu/ops/pallas/gather_agg.py:135",
         "launches": (serve["launches"] + deviceprep["launches"]["max_agg"]
-                     + train_launches["max_agg"] + pipe["launches"]["max_agg"]),
+                     + train_launches["max_agg"] + pipe["launches"]["max_agg"]
+                     + il["max_agg"]),
         "launches_by_path": {"serve": serve["launches"],
                              "serve_deviceprep": deviceprep["launches"]["max_agg"],
                              "train": one_dev["max_agg"],
                              "train_dist": dl["max_agg"],
-                             "pipeline": pipe["launches"]["max_agg"]},
+                             "train_tp": tl["max_agg"],
+                             "pipeline": pipe["launches"]["max_agg"],
+                             "serve_imported": il["max_agg"]},
         "max_abs_err": worst,
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -3489,6 +3931,7 @@ def main() -> int:
         "train_step_f32_with_arg": gspool_step["max_agg"],
         "train_step_bf16_with_arg": per_step(rows, [("max_agg", F, n)
                                                     for F, n in layers], "bfloat16"),
+        "tp_shapes": tp_rows(rows, "max_agg"),
     }, {
         "name": "max_agg_bwd",
         "route": "cuda",
@@ -3497,6 +3940,7 @@ def main() -> int:
         "launches": train_launches["max_agg_bwd"] + pipe["launches"]["max_agg_bwd"],
         "launches_by_path": {"train": one_dev["max_agg_bwd"],
                              "train_dist": dl["max_agg_bwd"],
+                             "train_tp": tl["max_agg_bwd"],
                              "pipeline": pipe["launches"]["max_agg_bwd"]},
         "max_abs_err": train_worst["max_agg_bwd"],
         **gspool_step["max_agg_bwd"],
@@ -3506,6 +3950,7 @@ def main() -> int:
                 "F.embedding_bag(mode='max') (aten._embedding_bag_dense_backward)"),
         "fast_bf16": per_step(rows, [("max_agg_bwd", F, n) for F, n in layers],
                               "bfloat16"),
+        "tp_shapes": tp_rows(rows, "max_agg_bwd"),
     }, {
         "name": "sum_agg",
         "route": "cuda",
@@ -3537,7 +3982,8 @@ def main() -> int:
         "launches_by_path": {"serve": serve["gat"]["launches"],
                              "serve_deviceprep": deviceprep["launches"]["gat_fwd"],
                              "train": one_dev["gat_fwd"],
-                             "train_dist": dl["gat_fwd"]},
+                             "train_dist": dl["gat_fwd"],
+                             "train_tp": tl["gat_fwd"]},
         "max_abs_err": gat_worst["abs"]["gat_fwd"],
         "max_rel_err": gat_worst["rel"]["gat_fwd"],
         **gat_per_step(gtime, "gat_fwd"),
@@ -3547,6 +3993,7 @@ def main() -> int:
                 "alone, F.embedding_bag(mode='sum', per_sample_weights=alpha)"),
         "serve_variant_f32": gat_per_step(gtime, "gat_fwd_serve"),
         "fast_bf16": gat_per_step(gtime, "gat_fwd", "bfloat16"),
+        "tp_shapes": gat_tp_rows(gtime, "gat_fwd"),
     }, {
         "name": "gat_bwd",
         "route": "cuda",
@@ -3554,7 +4001,8 @@ def main() -> int:
         "replaces": "gnn_tumor_seg_tpu/ops/pallas/fused_gat.py:186",
         "launches": train_launches["gat_bwd"],
         "launches_by_path": {"train": one_dev["gat_bwd"],
-                             "train_dist": dl["gat_bwd"]},
+                             "train_dist": dl["gat_bwd"],
+                             "train_tp": tl["gat_bwd"]},
         "max_abs_err": gat_worst["abs"]["gat_bwd"],
         "max_rel_err": gat_worst["rel"]["gat_bwd"],
         **gat_per_step(gtime, "gat_bwd"),
@@ -3563,6 +4011,7 @@ def main() -> int:
                 "(partial): d_alpha alone, "
                 "aten._embedding_bag_per_sample_weights_backward over alpha's bags"),
         "fast_bf16": gat_per_step(gtime, "gat_bwd", "bfloat16"),
+        "tp_shapes": gat_tp_rows(gtime, "gat_bwd"),
     }, {
         "name": "gat_rev",
         "route": "cuda",
@@ -3570,7 +4019,8 @@ def main() -> int:
         "replaces": "gnn_tumor_seg_tpu/ops/pallas/fused_gat.py:238",
         "launches": train_launches["gat_rev"],
         "launches_by_path": {"train": one_dev["gat_rev"],
-                             "train_dist": dl["gat_rev"]},
+                             "train_dist": dl["gat_rev"],
+                             "train_tp": tl["gat_rev"]},
         "max_abs_err": gat_worst["abs"]["gat_rev"],
         **gat_per_step(gtime, "gat_rev"),
         "bound_by": "bytes",
@@ -3578,6 +4028,7 @@ def main() -> int:
                 "(partial): d_z alone, aten._embedding_bag_dense_backward over "
                 "alpha's bags"),
         "fast_bf16": gat_per_step(gtime, "gat_rev", "bfloat16"),
+        "tp_shapes": gat_tp_rows(gtime, "gat_rev"),
     }]
     dtable = f"B={dtime['B']}, N={dtime['N']}, D={dtime['D']}"
     wsum_step = [(("wsum", 1, IN_FEATS), 1),
@@ -3687,6 +4138,8 @@ def main() -> int:
     log(f"[train] gradients through the kernels within {train['gat_grad_rel']:.3g} "
         f"(GAT) and {drop['grad_rel']:.3g} (GAT attn_drop) of the plain path's; "
         f"launches by path: {json.dumps(by_path)}")
+    log("[tp] " + json.dumps({"errs": tp["errs"], "step_ms": tp["timing"],
+                              "collective_bytes": tp["bytes"]}))
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

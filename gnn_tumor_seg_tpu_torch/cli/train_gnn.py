@@ -20,10 +20,14 @@ device, the kernels on CUDA and their plain versions on the CPU.
 Distributed training, one process per rank over torch.distributed
 (parallel/):
 
-  --parallel dp   --mesh D    data-parallel minibatch training
-                              (parallel/dp.py): each rank takes its slice
-                              of every global batch; the loss is the global
-                              weighted mean and the gradients are summed.
+  --parallel dp   --mesh D[,M] data-parallel minibatch training
+                              (parallel/dp.py): each data index takes its
+                              slice of every global batch; the loss is the
+                              global weighted mean and the gradients are
+                              summed. With M > 1 each layer also runs
+                              tensor-parallel over M model ranks (its
+                              weights' output columns, or a GAT layer's
+                              heads, split over them); D * M ranks in all.
   --parallel halo --mesh D    node-partitioned giant-graph training
                               (parallel/halo*.py): each step's minibatch is
                               one disjoint-union graph split over the ranks;
@@ -32,16 +36,15 @@ Distributed training, one process per rank over torch.distributed
                               local, which it prints), all_gather works for
                               any edge structure.
 
-Without --coordinator the command starts the D ranks itself
-(torch.multiprocessing.spawn; D = 1 runs in this process), on
+Without --coordinator the command starts the D * M ranks itself
+(torch.multiprocessing.spawn; one rank runs in this process), on
 cuda:(rank % visible cards), or on the CPU with --device cpu. With
 --coordinator HOST:PORT --num_processes P --process_id R it is one rank of
 P, started once per rank. NCCL serves ranks that each have a card; gloo
 serves the CPU and ranks that share a card. Rank 0 alone writes
 checkpoints and progress files, and the command exits non-zero if any rank
-fails. --mesh D,M with M > 1 (tensor parallelism) is refused: it is not
-ported yet (ROADMAP.md). --mesh defaults to every visible card (1 on the
-CPU).
+fails. --parallel halo takes --mesh D only, as the JAX CLI. --mesh defaults
+to every visible card on the data axis (1 on the CPU).
 """
 
 from __future__ import annotations
@@ -143,14 +146,17 @@ def _make_trainer(args, hp, train_view, mesh):
 
 def _evaluate(model, dataset, indices, mesh):
     """Evaluate `indices`: on one device all of them; data-parallel, each
-    rank its shard, combined over the ranks."""
+    data index its shard (every model rank of it the same, since the
+    forward is collective), combined over the data group, so each data
+    index counts once."""
     if mesh is None:
         return model.evaluate(dataset, indices)
     from ..parallel.multihost import combine_eval_results, process_shard
 
-    local = process_shard(indices, mesh.rank, mesh.world_size)
+    data = mesh.along("data")
+    local = process_shard(indices, data.rank, data.world_size)
     metrics, counts = model.evaluate(dataset, local)
-    metrics, counts, _ = combine_eval_results(metrics, counts, len(local), mesh)
+    metrics, counts, _ = combine_eval_results(metrics, counts, len(local), data)
     return metrics, counts
 
 
@@ -299,8 +305,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "ranks; halo: one union graph a step, its nodes split "
                         "over the ranks")
     p.add_argument("--mesh", default=None, type=str, metavar="D[,M]",
-                   help="ranks on the data axis (M > 1, tensor parallelism, "
-                        "is not ported); default: every visible card")
+                   help="D ranks on the data axis, M on the model axis "
+                        "(tensor parallelism, --parallel dp only); "
+                        "default: every visible card on the data axis")
     p.add_argument("--halo_variant", default="p2p",
                    choices=["p2p", "all_gather"],
                    help="halo exchange: p2p = boundary rows only (all_gather "
@@ -359,13 +366,15 @@ def _load_and_run(args, mesh) -> None:
             run_k_fold_val(args, hp, progress_fp, dataset, args.num_folds, mesh)
 
 
-def _run_rank(rank: int, world: int, init_method: str, args) -> None:
+def _run_rank(rank: int, world: int, init_method: str, args,
+              n_model: int = 1) -> None:
     """One rank: join the process group, train, leave the group."""
     from ..parallel.mesh import initialize_multihost, shutdown
 
     if args.device.type == "cpu":
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    mesh = initialize_multihost(init_method, world, rank, device=args.device)
+    mesh = initialize_multihost(init_method, world, rank, device=args.device,
+                                n_model=n_model)
     try:
         _load_and_run(args, mesh)
     finally:
@@ -383,11 +392,9 @@ def main(argv=None) -> None:
         n_data, n_model = _parse_mesh(args.mesh)
     except ValueError as e:
         parser.error(str(e))
-    if n_model != 1:
-        parser.error(
-            f"--mesh {args.mesh}: tensor parallelism (a model axis > 1) is not "
-            "ported yet (ROADMAP.md, modules to port, 'Tensor parallelism'); "
-            "use --mesh D")
+    if args.parallel == "halo" and n_model != 1:
+        parser.error("--parallel halo partitions nodes over the data axis "
+                     "only; use --mesh D (n_model=1)")
     multi = [n for n in _MULTI_PROCESS_OPTIONS if getattr(args, n) is not None]
     if args.parallel == "single":
         if multi or args.mesh:
@@ -401,23 +408,25 @@ def main(argv=None) -> None:
         if len(multi) != len(_MULTI_PROCESS_OPTIONS):
             parser.error("--coordinator, --num_processes and --process_id go "
                          "together")
-        if n_data is not None and n_data != args.num_processes:
-            parser.error(f"--mesh {n_data} does not match --num_processes "
+        if n_data is not None and n_data * n_model != args.num_processes:
+            parser.error(f"--mesh {args.mesh} does not match --num_processes "
                          f"{args.num_processes}")
         _run_rank(args.process_id, args.num_processes,
-                  f"tcp://{args.coordinator}", args)
+                  f"tcp://{args.coordinator}", args, n_model)
         return
     from ..parallel.mesh import free_port
 
-    world = n_data or (torch.cuda.device_count() if args.device.type == "cuda"
-                       else 1)
+    if n_data is None:
+        n_data = torch.cuda.device_count() if args.device.type == "cuda" else 1
+    world = n_data * n_model
     init = f"tcp://localhost:{free_port()}"
     if world == 1:
         _run_rank(0, 1, init, args)
     else:
         import torch.multiprocessing as mp
 
-        mp.spawn(_run_rank, args=(world, init, args), nprocs=world, join=True)
+        mp.spawn(_run_rank, args=(world, init, args, n_model), nprocs=world,
+                 join=True)
 
 
 if __name__ == "__main__":

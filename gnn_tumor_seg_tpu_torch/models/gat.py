@@ -30,6 +30,18 @@ never sets attn_drop; set it on the model (GAT(..., attn_drop=p)).
 Under precision mode "fast" the layers run in bf16: activations and the
 per-use parameter casts are bf16, the master parameters stay float32, and
 the logits are cast back to float32 at the head.
+
+Tensor parallelism (parallel/dp.py sets `mesh` and `tp_heads` on a layer
+whose heads divide over the model ranks): the layer runs head-parallel.
+The rank holds H / M whole heads: the matching contiguous [H*F] column
+block of w, w_res and bias (the columns are laid out head-major) and the
+rows of attn_l and attn_r. The fused kernels run on those heads, and the
+[B, N, H*F] output is all-gathered. The replicated input h goes through
+copy_to_model, whose backward sums the model ranks' partial gradients
+(parallel/collectives.py). Attention dropout draws its mask for all H
+heads and keeps the rank's, so each rank's mask is its slice of one
+device's and every rank's generator stays in step. A layer whose heads do
+not divide runs replicated, the same on every model rank.
 """
 
 from __future__ import annotations
@@ -69,6 +81,9 @@ class GatConv(nn.Module):
         self.register_parameter(
             "w_res", nn.Parameter(xavier_uniform((in_feats, hf), generator))
             if self.residual and in_feats != hf else None)
+        # tensor parallelism (module doc): set by parallel/dp.shard_model
+        self.mesh = None
+        self.tp_heads = False
 
     @property
     def keys(self) -> tuple[str, ...]:
@@ -84,26 +99,42 @@ class GatConv(nn.Module):
         p = {k: getattr(self, k).to(cd) for k in self.keys}
         h = _dropout(h.to(cd), feat_drop, generator)
         B, N, _ = h.shape
-        H, F = self.num_heads, self.out_feats
+        H, F = p["attn_l"].shape        # the rank's heads under tensor parallelism
+        tp = self.mesh is not None and self.tp_heads
+        if tp:
+            from ..parallel.collectives import copy_to_model, gather_from_model
+
+            h = copy_to_model(h, self.mesh)
         z = (h @ p["w"]).reshape(B, N, H, F)
         el = torch.einsum("bnhf,hf->bnh", z, p["attn_l"]).contiguous()
         er = torch.einsum("bnhf,hf->bnh", z, p["attn_r"]).contiguous()
         res = None
-        if self.residual:
-            res = h @ p["w_res"] if self.w_res is not None else h
+        if self.residual and self.w_res is not None:
+            res = h @ p["w_res"]
+        elif self.residual:             # identity: the rank's heads' columns
+            res = (h.narrow(-1, self.mesh.model_rank * H * F, H * F).contiguous()
+                   if tp else h)
         act = "elu" if activation else None
         if attn_drop > 0.0:
-            return self._decomposed(graph, z, el, er, res, p["bias"], act,
-                                    negative_slope, attn_drop, generator)
-        return fused_gat.fused_gat_attention(
-            z, el, er, p["bias"], graph.nbr, graph.nbr_mask, graph.rslot,
-            negative_slope, act, res)
+            heads = (self.mesh.model_rank * H, self.num_heads) if tp else None
+            out = self._decomposed(graph, z, el, er, res, p["bias"], act,
+                                   negative_slope, attn_drop, generator, heads)
+        else:
+            out = fused_gat.fused_gat_attention(
+                z, el, er, p["bias"], graph.nbr, graph.nbr_mask, graph.rslot,
+                negative_slope, act, res)
+        if tp:
+            out = gather_from_model(out.reshape(B, N, H * F), self.mesh)
+            return out.reshape(B, N, self.num_heads, F)
+        return out
 
     @staticmethod
     def _decomposed(graph, z, el, er, res, bias, act, slope, attn_drop,
-                    generator):
+                    generator, heads=None):
         """The JAX decomposed path with attention dropout (gat.py:119-159):
-        the slot gather and the weighted combine are kernels on the card."""
+        the slot gather and the weighted combine are kernels on the card.
+        heads = (first head, all heads) on a head-sharded layer: the mask is
+        drawn for every head and the rank's heads sliced out of it."""
         B, N, H, F = z.shape
         nbr, mask = graph.nbr, graph.nbr_mask
         el_src = slot_gather.gather_slots(el, nbr, mask, graph.rslot)  # [B,N,D,H]
@@ -114,7 +145,10 @@ class GatConv(nn.Module):
         first_cpu_exp()
         w = torch.exp(e) * valid.to(e.dtype)
         alpha = w / w.sum(dim=2, keepdim=True).clamp_min(1e-20)
-        alpha = _dropout(alpha, attn_drop, generator)
+        if heads is None:
+            alpha = _dropout(alpha, attn_drop, generator)
+        else:                           # every head's mask; the rank's kept
+            alpha = _dropout(alpha, attn_drop, generator, cols=heads)
         out = weighted_sum.weighted_combine(z, alpha, nbr, mask, graph.rslot)
         if res is not None:
             out = out + res.reshape(B, N, H, F)

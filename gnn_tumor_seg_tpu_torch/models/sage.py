@@ -18,6 +18,16 @@ run the weighted-combine kernel, whose gradient reads the graph's `rslot`.
 Under precision mode "fast" the layers run in bf16: activations and the
 per-use parameter casts are bf16, the master parameters stay float32, and
 the logits are cast back to float32 at the head.
+
+Tensor parallelism (parallel/dp.py sets `mesh`, `tp_pool` and `tp_out` on a
+layer whose parameters it sharded): the input h is replicated over the
+model ranks, and each rank holds the column blocks that tp_leaf_spec gives
+it. With tp_pool the pool projection and the max aggregation run on the
+rank's F_in / M columns and the aggregate is all-gathered; with tp_out the
+output products run on the rank's F_out / M columns, which are all-gathered
+after the activation. A replicated input of a column-parallel product goes
+through copy_to_model, whose backward sums the model ranks' partial
+gradients (parallel/collectives.py).
 """
 
 from __future__ import annotations
@@ -44,11 +54,19 @@ LAYER_KEYS = {
 }
 
 
-def _dropout(h, rate: float, generator: torch.Generator | None):
+def _dropout(h, rate: float, generator: torch.Generator | None,
+             cols: tuple[int, int] | None = None):
+    """Inverted dropout. With cols = (start, width), h holds columns start:
+    start + n of a tensor `width` wide on its last axis: the mask is drawn at
+    that full width and sliced, so a model rank draws the mask (and advances
+    the generator) exactly as one device does."""
     if rate <= 0.0:
         return h
     keep = 1.0 - rate
-    mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+    shape = h.shape if cols is None else (*h.shape[:-1], cols[1])
+    mask = torch.rand(shape, generator=generator, device=h.device) < keep
+    if cols is not None:
+        mask = mask.narrow(-1, cols[0], h.shape[-1])
     return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype,
                                                    device=h.device))
 
@@ -72,6 +90,14 @@ class SageConv(nn.Module):
                                                       generator))
             self.b_pool = nn.Parameter(torch.zeros(in_feats))
         self.bias = nn.Parameter(torch.zeros(out_feats))
+        # tensor parallelism (module doc): set by parallel/dp.shard_model
+        self.mesh = None
+        self.tp_pool = self.tp_out = False
+
+    @property
+    def keys(self) -> tuple[str, ...]:
+        """The layer's parameter names in the JAX pytree flatten order."""
+        return LAYER_KEYS[self.aggregator]
 
     def forward(self, graph: GraphBatch, h: torch.Tensor, activation: bool,
                 feat_drop: float = 0.0,
@@ -79,25 +105,37 @@ class SageConv(nn.Module):
         cd = compute_dtype()
         h = _dropout(h, feat_drop, generator).to(cd)
         p = {k: getattr(self, k).to(cd) for k in LAYER_KEYS[self.aggregator]}
-        ew = graph.edge_weight
+        ew, mesh = graph.edge_weight, self.mesh
+        hc = h                           # h as a column-parallel product's input
+        if self.tp_pool or self.tp_out:
+            from ..parallel.collectives import copy_to_model, gather_from_model
+
+            hc = copy_to_model(h, mesh)
+        x = hc if self.tp_out else h     # the input of the output products
         if self.aggregator == "mean":
-            h_n = aggregate_neighbors(h, graph.nbr, graph.nbr_mask, "mean",
+            h_n = aggregate_neighbors(x, graph.nbr, graph.nbr_mask, "mean",
                                       rslot=graph.rslot, edge_weight=ew)
-            out = h @ p["w_self"] + h_n @ p["w_neigh"]
+            out = x @ p["w_self"] + h_n @ p["w_neigh"]
         elif self.aggregator == "gcn":
-            s = aggregate_neighbors(h, graph.nbr, graph.nbr_mask, "sum",
+            s = aggregate_neighbors(x, graph.nbr, graph.nbr_mask, "sum",
                                     rslot=graph.rslot, edge_weight=ew)
             w_mask = graph.nbr_mask if ew is None else graph.nbr_mask * ew
             deg = w_mask.sum(dim=-1, keepdim=True)
-            h_n = (s + h) / (deg + 1.0).to(s.dtype)
+            h_n = (s + x) / (deg + 1.0).to(s.dtype)
             out = h_n @ p["w_neigh"]
         else:
-            pooled = torch.relu(h @ p["w_pool"] + p["b_pool"])
+            pooled = torch.relu((hc if self.tp_pool else h) @ p["w_pool"]
+                                + p["b_pool"])
             mx = aggregate_neighbors(pooled, graph.nbr, graph.nbr_mask, "max",
                                      rslot=graph.rslot)
-            out = h @ p["w_self"] + mx @ p["w_neigh"]
+            if self.tp_pool:
+                mx = gather_from_model(mx, mesh)
+            if self.tp_out:
+                mx = copy_to_model(mx, mesh)
+            out = x @ p["w_self"] + mx @ p["w_neigh"]
         out = out + p["bias"]
-        return torch.relu(out) if activation else out
+        out = torch.relu(out) if activation else out
+        return gather_from_model(out, mesh) if self.tp_out else out
 
 
 class GraphSage(nn.Module):

@@ -18,6 +18,18 @@ inserts these itself under shard_map and GSPMD).
                              same replicated objective (the global loss).
   all_reduce_grads(params)   sums the parameters' gradients over ranks in
                              place (one flat buffer, one collective).
+  copy_to_model(x, mesh)     tensor parallelism, over the model group: the
+                             identity; backward, the cotangents summed over
+                             the model ranks. It goes on a replicated input
+                             of a column-parallel product, whose gradient
+                             each rank holds only in part.
+  gather_from_model(x, mesh) the model ranks' column blocks of x,
+                             concatenated on the last axis in model-rank
+                             order; backward, the rank's own block of the
+                             (replicated) cotangent.
+  gather_leaf(x, axis, mesh) the same without a gradient, on any axis: a
+                             sharded leaf (parameter or optimizer moment)
+                             made whole for a checkpoint.
 
 Gloo's send and recv take CPU tensors only: on the card, batch_isend_irecv
 of CUDA tensors over gloo aborts the process, where all_reduce, all_gather
@@ -41,7 +53,8 @@ from .mesh import Mesh
 
 __all__ = ["all_gather_rows", "ring_exchange", "all_reduce_sum",
            "all_reduce_grads", "all_reduce_max_int", "all_gather_host",
-           "launches_by_rank"]
+           "launches_by_rank", "copy_to_model", "gather_from_model",
+           "gather_leaf"]
 
 def _to_wire(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """What send takes: t contiguous, on the host when the mesh stages."""
@@ -67,12 +80,13 @@ def _all_reduce(x: torch.Tensor, mesh: Mesh, op=dist.ReduceOp.SUM) -> torch.Tens
     return out
 
 
-def _all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """[n, ...] per rank -> [world * n, ...] in rank order."""
+def _all_gather(x: torch.Tensor, mesh: Mesh, dim: int = 0) -> torch.Tensor:
+    """Every rank's x concatenated along `dim` in rank order ([n, ...] per
+    rank -> [world * n, ...] for dim 0)."""
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.world_size)]
     dist.all_gather(parts, x, group=mesh.group)
-    return torch.cat(parts, dim=0)
+    return torch.cat(parts, dim=dim)
 
 
 def _exchange(to_next: torch.Tensor, to_prev: torch.Tensor, mesh: Mesh):
@@ -142,6 +156,29 @@ class _AllReduceSum(torch.autograd.Function):
         return g, None
 
 
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.n = mesh, x.shape[-1]
+        return _all_gather(x, mesh, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, n = ctx.mesh.rank, ctx.n
+        return g[..., r * n:(r + 1) * n].contiguous(), None
+
+
 def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """x [n, ...] on every rank -> [world * n, ...], rank r's rows at
     [r * n, (r + 1) * n)."""
@@ -162,7 +199,25 @@ def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return _AllReduceSum.apply(x, mesh)
 
 
+def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """x itself; its gradient summed over `mesh`'s model group."""
+    return _CopyToModel.apply(x, mesh.along("model"))
+
+
+def gather_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """x [..., n] on every model rank -> [..., M * n], model rank m's block
+    at columns [m * n, (m + 1) * n)."""
+    return _GatherFromModel.apply(x, mesh.along("model"))
+
+
 # ------------------------------------------------------------ no gradient
+
+
+@torch.no_grad()
+def gather_leaf(x: torch.Tensor, axis: int, mesh: Mesh) -> torch.Tensor:
+    """A leaf sharded on `axis` over `mesh`'s model group, made whole on
+    every model rank."""
+    return _all_gather(x, mesh.along("model"), dim=axis)
 
 
 @torch.no_grad()

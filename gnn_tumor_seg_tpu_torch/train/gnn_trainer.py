@@ -57,11 +57,13 @@ def _dropout_seed(seed: int, epoch: int) -> int:
     return int(np.random.SeedSequence([seed + 1, epoch]).generate_state(1)[0])
 
 
-def restore_training_state(path: str, model, optimizer, model_type: str
-                           ) -> int | None:
+def restore_training_state(path: str, model, optimizer, model_type: str,
+                           shard=None) -> int | None:
     """Load a checkpoint's parameters into `model` (in place, JAX flatten
     order) and, when it has them, its optimizer state into `optimizer`.
-    Returns the checkpoint's epoch counter, or None."""
+    `shard(i, leaf)`, when given, maps parameter i's whole leaf (and its two
+    moments) to the part the model holds (tensor parallelism). Returns the
+    checkpoint's epoch counter, or None."""
     leaves, ckpt_type, _, manifest = load_checkpoint(path)
     if ckpt_type != model_type:
         raise ValueError(f"checkpoint holds a {ckpt_type}, the trainer a "
@@ -70,6 +72,10 @@ def restore_training_state(path: str, model, optimizer, model_type: str
     if len(leaves) != len(params):
         raise ValueError(f"checkpoint has {len(leaves)} parameter leaves, "
                          f"the model {len(params)}")
+    n = len(params)
+    if shard is None:
+        shard = lambda i, leaf: leaf  # noqa: E731
+    leaves = [shard(i, leaf) for i, leaf in enumerate(leaves)]
     with torch.no_grad():
         for p, leaf in zip(params, leaves):
             if tuple(np.shape(leaf)) != tuple(p.shape):
@@ -78,7 +84,9 @@ def restore_training_state(path: str, model, optimizer, model_type: str
             p.copy_(torch.tensor(np.asarray(leaf, np.float32)))
     opt = load_opt_state(path)
     if opt is not None:
-        load_opt_state_leaves(optimizer, opt)
+        head, moments = opt[:len(opt) - 2 * n], opt[len(opt) - 2 * n:]
+        load_opt_state_leaves(optimizer, head + [
+            shard(i % n, m) for i, m in enumerate(moments)])
     epoch = manifest.get("extra", {}).get("epoch")
     return None if epoch is None else int(epoch)
 

@@ -1,7 +1,9 @@
 """cli.train_gnn --parallel dp|halo on the CPU: the command starts two gloo
 ranks itself (--mesh 2 --device cpu), rank 0 alone writes the progress file,
 its JSON-lines log and the checkpoints, and a checkpoint serves through
-load_gnn_from_checkpoint; --mesh 2,2 (tensor parallelism) is refused.
+load_gnn_from_checkpoint; so too with tensor parallelism (--parallel dp
+--mesh 1,2); --parallel halo --mesh 2,2 is refused with the JAX CLI's
+reason.
 
 Each run is a child process in a session of its own with a deadline: on
 expiry the whole session (the command and the ranks it spawned) is killed
@@ -105,9 +107,38 @@ def test_two_ranks_train_and_rank0_writes(data_dir, tmp_path, model_type,
 
 
 def test_tensor_parallel_mesh_is_refused(data_dir, tmp_path, capsys):
+    """A model axis under --parallel halo is refused, as the JAX CLI does
+    (gnn_tumor_seg_tpu/cli/train_gnn.py:271-273), before any rank starts."""
     with pytest.raises(SystemExit):
         train_gnn.main(["-d", data_dir, "-o", str(tmp_path), "-r", "r",
                         "--device", "cpu", "--parallel", "halo", "--mesh", "2,2"])
     err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP.md" in err
+    assert ("--parallel halo partitions nodes over the data axis only; use "
+            "--mesh D (n_model=1)") in err
     assert not os.path.exists(tmp_path / "r.txt")
+
+
+@pytest.mark.parametrize("model_type", ["GSpool", "GAT"])
+def test_tensor_parallel_dp_trains_and_rank0_writes(data_dir, tmp_path,
+                                                    model_type):
+    """--parallel dp --mesh 1,2: two model ranks, each with its column
+    blocks (GAT: its heads); rank 0 writes one checkpoint of the whole
+    model, which serves on one device."""
+    out = str(tmp_path / "logs")
+    _run_cli(["-d", data_dir, "-o", out, "-r", "run", "-m", model_type,
+              "-k", "1", "--device", "cpu", "--parallel", "dp", "--mesh", "1,2",
+              *OVERRIDES, "--hp", "gat_heads=[2]", "--hp", "gat_residuals=[False]"])
+    assert _rows(os.path.join(out, "run.txt")) == ["run_full"]
+    with open(os.path.join(out, "run.txt.jsonl")) as f:
+        epochs = [line for line in f if '"event": "epoch"' in line]
+    assert 1 <= len(epochs) <= 2
+    assert sorted(f for f in os.listdir(out) if f.endswith(".ckpt")) == ["run_f1.ckpt"]
+    model, hp, fwd = load_gnn_from_checkpoint(os.path.join(out, "run_f1.ckpt"),
+                                              device="cpu")
+    # whole leaves: the output layer's [in, 4] weight (GAT: 2 heads of 8 in)
+    want = (8, 4) if model_type == "GSpool" else (16, 4)
+    assert tuple(model.jax_parameters()[-1].shape) == want
+    g = ImageGraphDataset(data_dir, read_image=False).get_graph(0)
+    logits = fwd(g)
+    assert logits.shape == (1, g.num_nodes_padded, hp.out_classes)
+    assert torch.isfinite(logits).all()

@@ -4,8 +4,10 @@ Every module of gnn_tumor_seg_tpu_torch is imported in a fresh interpreter
 in which importing `jax` or `gnn_tumor_seg_tpu` fails, and one CPU training
 epoch and evaluation of GSpool, of GAT and of the refinement CNN, and one
 epoch of each distributed trainer on a one-rank gloo group, run there;
-the interpreter must then hold no `jax` and no `gnn_tumor_seg_tpu` module. Importing must also build nothing: the
-kernels are compiled at first use.
+the interpreter must then hold no `jax` and no `gnn_tumor_seg_tpu` module,
+and no `matplotlib` (viz/ and the plot CLIs import it only where they
+draw). Importing must also build nothing: the kernels are compiled at first
+use.
 """
 
 import os
@@ -82,7 +84,8 @@ HaloTrainer("GSpool", HyperParams(layer_sizes=[4]), [pg], m, variant="p2p",
 pmesh.shutdown()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "gnn_tumor_seg_tpu"
-             or m.startswith("gnn_tumor_seg_tpu."))
+             or m.startswith("gnn_tumor_seg_tpu.") or m == "matplotlib"
+             or m.startswith("matplotlib."))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -135,6 +138,11 @@ def test_port_imports_no_jax_and_no_jax_package():
         "gnn_tumor_seg_tpu_torch.parallel.halo",
         "gnn_tumor_seg_tpu_torch.parallel.halo_data",
         "gnn_tumor_seg_tpu_torch.parallel.halo_trainer",
+        "gnn_tumor_seg_tpu_torch.cli.import_torch_weights",
+        "gnn_tumor_seg_tpu_torch.cli.plot_pred_slices",
+        "gnn_tumor_seg_tpu_torch.cli.plot_pred_volume",
+        "gnn_tumor_seg_tpu_torch.viz.helpers",
+        "gnn_tumor_seg_tpu_torch.viz.volume_viewer",
     }
     assert expected <= set(result["modules"])
 

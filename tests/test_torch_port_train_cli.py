@@ -76,13 +76,16 @@ def test_k_fold_then_resume_full_dataset(data_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flag,says", [
-    (["--parallel", "dp", "--mesh", "2,2"], "not ported yet"),
+    (["--parallel", "dp", "--mesh", "2,2", "--coordinator", "localhost:1",
+      "--num_processes", "2", "--process_id", "0"],
+     "--mesh 2,2 does not match --num_processes 2"),
     (["--mesh", "4"], "need --parallel dp or halo"),
     (["--num_processes", "2"], "need --parallel dp or halo")],
     ids=["flag0", "flag1", "flag2"])
 def test_distribution_options_are_refused(data_dir, tmp_path, flag, says, capsys):
-    """Tensor parallelism (a model axis > 1) is not ported; a mesh or the
-    multi-process options without --parallel dp|halo mean nothing."""
+    """A mesh of D * M ranks that is not the world of --num_processes is
+    refused before any rank joins; a mesh or the multi-process options
+    without --parallel dp|halo mean nothing."""
     with pytest.raises(SystemExit):
         train_gnn.main(["-d", data_dir, "-o", str(tmp_path), "-r", "r",
                         "--device", "cpu", *flag])

@@ -237,3 +237,149 @@ def halo_training(rank, world, init, outdir, spec_path):
         _save(outdir, "train", rank, **out)
     finally:
         shutdown()
+
+
+# ------------------------------------------------------- tensor parallelism
+
+
+def _whole(tr, tensors):
+    """The rank's parts of every parameter (or gradient) of a
+    ParallelGNNTrainer, gathered whole over the model group."""
+    from gnn_tumor_seg_tpu_torch.parallel.collectives import gather_leaf
+
+    axes = tr._tp_axes or [None] * len(tensors)
+    return [(t if ax is None else gather_leaf(t, ax, tr.mesh)).numpy().copy()
+            for t, ax in zip(tensors, axes)]
+
+
+def _tp_trainer(name, hp, data, mesh, leaves):
+    """An "exact" ParallelGNNTrainer from the JAX model's whole leaves."""
+    from gnn_tumor_seg_tpu_torch.parallel import dp
+
+    tr = dp.ParallelGNNTrainer(name, hp, data, seed=0, mesh=mesh,
+                               precision="exact")
+    it = iter(leaves)
+    tr.load_params([{k: next(it) for k in layer.keys}
+                    for layer in tr.model.layers])
+    return tr
+
+
+def _tp_step_and_epoch(tr, data, name):
+    """The first global batch's loss and summed gradients (loss_and_grads,
+    gathered whole, dropout drawn as run_epoch draws it), then one epoch's
+    loss and whole parameters."""
+    from gnn_tumor_seg_tpu_torch.ops.graph import batch_graphs
+    from gnn_tumor_seg_tpu_torch.ops.precision import precision_scope
+
+    out = {}
+    order = np.random.default_rng((0, 0)).permutation(len(data))
+    idx, _, _ = next(tr._epoch_batches(order))
+    n_pad, d_pad = tr._shape_budget
+    batch = batch_graphs([data.get_graph(int(i)) for i in idx],
+                         n_pad=n_pad, d_pad=d_pad)
+    generator = torch.Generator().manual_seed(tr._dropout_seed())
+    with precision_scope("exact"):
+        out[name + "/step_loss"] = np.float64(tr.loss_and_grads(batch, generator))
+    for i, g in enumerate(_whole(tr, [p.grad for p in tr.model.jax_parameters()])):
+        out[f"{name}/grad/{i}"] = g
+    tr.optimizer.zero_grad(set_to_none=True)
+    out[name + "/loss"] = np.float64(tr.run_epoch())
+    for i, p in enumerate(_whole(tr, [p.detach() for p in
+                                      tr.model.jax_parameters()])):
+        out[f"{name}/param/{i}"] = p
+    return out
+
+
+def tp_world(rank, world, init, n_model, outdir, spec_path):
+    """A (world // n_model, n_model) mesh: the mesh's axes and groups, the
+    model-group collectives with their gradients, and per case of the spec,
+    from the given whole parameters in "exact": the first global batch's
+    loss and summed gradients (loss_and_grads, gathered whole), one epoch's
+    loss and whole parameters, a checkpoint and a trainer resumed from it;
+    then a "fast" GSpool run's losses."""
+    from gnn_tumor_seg_tpu_torch.config import HyperParams
+    from gnn_tumor_seg_tpu_torch.data.synthetic import SyntheticGraphDataset
+    from gnn_tumor_seg_tpu_torch.parallel import dp
+    from gnn_tumor_seg_tpu_torch.parallel.collectives import (
+        all_reduce_sum, copy_to_model, gather_from_model)
+    from gnn_tumor_seg_tpu_torch.parallel.mesh import initialize_multihost, shutdown
+
+    torch.set_num_threads(1)
+    mesh = initialize_multihost(init, world, rank, device="cpu",
+                                n_model=n_model, timeout_s=GROUP_TIMEOUT_S)
+    try:
+        spec = np.load(spec_path)
+        cfg = json.loads(str(spec["config"]))
+        out = {"axes": np.asarray([mesh.data_rank, mesh.model_rank,
+                                   mesh.n_data, mesh.n_model])}
+        # the groups: sums over each axis, and the model-group Functions
+        out["data_sum"] = all_reduce_sum(torch.tensor([float(rank)]),
+                                         mesh.along("data")).numpy()
+        out["model_sum"] = all_reduce_sum(torch.tensor([float(rank)]),
+                                          mesh.along("model")).numpy()
+        x = (torch.arange(6.0).reshape(2, 3) + 10 * rank).requires_grad_()
+        full = gather_from_model(x, mesh)
+        w = torch.arange(12.0).reshape(2, 6)
+        (full * w).sum().backward()
+        out["gathered"] = full.detach().numpy()
+        out["gather_grad"] = x.grad.numpy()
+        z = torch.full((2, 6), float(rank + 1), requires_grad=True)
+        (copy_to_model(z, mesh) * w).sum().backward()
+        out["copy_grad"] = z.grad.numpy()
+
+        data = SyntheticGraphDataset(**cfg["data"])
+        for c in cfg["cases"]:
+            name = c["model_type"]
+            hp = HyperParams(**cfg["hp"], **c["hp"])
+            leaves = [spec[f"{name}/{i}"] for i in range(c["n_leaves"])]
+            tr = _tp_trainer(name, hp, data, mesh, leaves)
+            out.update(_tp_step_and_epoch(tr, data, name))
+            params = [out[f"{name}/param/{i}"] for i in range(len(leaves))]
+            tr.save_weights(outdir + os.sep, name)
+            resumed = dp.ParallelGNNTrainer(name, hp, data, seed=1, mesh=mesh,
+                                            precision="exact")
+            resumed.restore(os.path.join(outdir, name + ".ckpt"))
+            again = _whole(resumed, [p.detach() for p in
+                                     resumed.model.jax_parameters()])
+            out[name + "/resumed_equal"] = np.bool_(
+                resumed.epoch == tr.epoch
+                and all(np.array_equal(a, b) for a, b in zip(params, again)))
+        hp = HyperParams(**{**cfg["hp"], "lr": 3e-3}, layer_sizes=[16, 16])
+        fast = dp.ParallelGNNTrainer("GSpool", hp, data, seed=0, mesh=mesh,
+                                     precision="fast")
+        out["fast_losses"] = np.asarray([fast.run_epoch() for _ in range(4)])
+        _save(outdir, "tp", rank, **out)
+    finally:
+        shutdown()
+
+
+def tp_dropout_world(rank, world, init, n_model, outdir, spec_path, drop):
+    """A (world // n_model, n_model) mesh training the spec's GSpool and GAT
+    cases with feature dropout `drop` (and attention dropout `drop` on the
+    GAT): the first global batch's loss and summed gradients and one epoch's
+    loss and whole parameters, as tp_world records them."""
+    from gnn_tumor_seg_tpu_torch.config import HyperParams
+    from gnn_tumor_seg_tpu_torch.data.synthetic import SyntheticGraphDataset
+    from gnn_tumor_seg_tpu_torch.parallel.mesh import initialize_multihost, shutdown
+
+    torch.set_num_threads(1)
+    mesh = initialize_multihost(init, world, rank, device="cpu",
+                                n_model=n_model, timeout_s=GROUP_TIMEOUT_S)
+    try:
+        spec = np.load(spec_path)
+        cfg = json.loads(str(spec["config"]))
+        data = SyntheticGraphDataset(**cfg["data"])
+        out = {}
+        for c in cfg["cases"]:
+            name = c["model_type"]
+            if name not in ("GSpool", "GAT"):
+                continue
+            hp = HyperParams(**cfg["hp"], **c["hp"], feature_dropout=drop)
+            tr = _tp_trainer(name, hp, data, mesh,
+                             [spec[f"{name}/{i}"] for i in range(c["n_leaves"])])
+            if name == "GAT":
+                tr.model.attn_drop = drop
+            out.update(_tp_step_and_epoch(tr, data, name))
+        _save(outdir, "drop", rank, **out)
+    finally:
+        shutdown()
