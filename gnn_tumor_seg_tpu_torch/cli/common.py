@@ -20,12 +20,12 @@ with background, so the port does not pad.
 
 from __future__ import annotations
 
-import time
 from functools import partial
 
 import numpy as np
 import torch
 
+from .. import spans
 from ..config import DEFAULT_BACKGROUND_NODE_LOGITS
 from ..ops.precision import compute_dtype, fast_precision
 from ..runtime import resolve_device
@@ -186,53 +186,49 @@ def predict_one_sample_device(gnn_forward, cnn_forward, graph,
     through sv_remap (raw supervoxel id -> node id, -1 = discarded
     background) applied on the card. -1 in either partition maps to the
     appended background row explicitly."""
-    rec = time.perf_counter
-    t0 = rec()
-    node_logits = gnn_forward(graph)[0].float()              # [Nmax, C]
-    dev = node_logits.device
-    n_max = node_logits.shape[0]
-    bg = torch.from_numpy(_background_row(node_logits.shape[-1])).to(dev)
-    table = torch.cat([node_logits, bg], 0)                  # [Nmax+1, C]
-    if sv_raw_dev is not None:
-        remap = torch.from_numpy(np.asarray(sv_remap, np.int64)).to(dev)
-        table = torch.cat([table[torch.where(remap < 0, n_max, remap)], bg], 0)
-        sv = sv_raw_dev
-    else:
-        sv = ship_partition(sv_partition, int(graph.n_nodes[0]), dev)
-    idx = torch.where(sv < 0, table.shape[0] - 1, sv.long())
-    vox = table[idx]                                         # [X, Y, Z, C]
-    mx, my, mz = (m.cpu().numpy() for m in
-                  _dilated_axis_masks(vox.argmax(-1) != 0))
-    t1 = rec()
-    fl = default_crop_floor() or (0, 0, 0)
-    ix, nx, rx = _axis_indices(mx, _CROP_BUCKET, floor=fl[0])
-    iy, ny, ry = _axis_indices(my, _CROP_BUCKET, floor=fl[1])
-    iz, nz, rz = _axis_indices(mz, _CROP_BUCKET, floor=fl[2])
-    cd = compute_dtype()
-    if vol_t is not None:
-        img_dev = vol_t.permute(1, 2, 3, 0)
-    else:
-        # under "fast" the image goes up as bf16, as the JAX package ships it
-        img_dev = torch.from_numpy(np.ascontiguousarray(img, np.float32))
-        img_dev = img_dev.to(cd).to(dev).float()
-    x = torch.cat([img_dev, vox], -1)
-    x = x.index_select(0, torch.from_numpy(ix).to(dev))
-    x = x.index_select(1, torch.from_numpy(iy).to(dev))
-    x = x.index_select(2, torch.from_numpy(iz).to(dev)).to(cd)
-    if stage_times is not None:
-        _sync(dev)
-    t2 = rec()
-    refined = cnn_forward(x[None])[0]
-    preds = refined.argmax(-1).to(torch.int16).cpu().numpy()
-    t3 = rec()
+    st = stage_times
+    with spans.span("serve.gnn_forward", st, "gnn_forward"):
+        node_logits = gnn_forward(graph)[0].float()              # [Nmax, C]
+        dev = node_logits.device
+        n_max = node_logits.shape[0]
+        bg = torch.from_numpy(_background_row(node_logits.shape[-1])).to(dev)
+        table = torch.cat([node_logits, bg], 0)                  # [Nmax+1, C]
+        if sv_raw_dev is not None:
+            remap = torch.from_numpy(np.asarray(sv_remap, np.int64)).to(dev)
+            table = torch.cat([table[torch.where(remap < 0, n_max, remap)], bg], 0)
+            sv = sv_raw_dev
+        else:
+            sv = ship_partition(sv_partition, int(graph.n_nodes[0]), dev)
+        idx = torch.where(sv < 0, table.shape[0] - 1, sv.long())
+        vox = table[idx]                                         # [X, Y, Z, C]
+        mx, my, mz = (m.cpu().numpy() for m in
+                      _dilated_axis_masks(vox.argmax(-1) != 0))
+    with spans.span("serve.crop_and_prep", st, "crop_and_prep"):
+        fl = default_crop_floor() or (0, 0, 0)
+        ix, nx, rx = _axis_indices(mx, _CROP_BUCKET, floor=fl[0])
+        iy, ny, ry = _axis_indices(my, _CROP_BUCKET, floor=fl[1])
+        iz, nz, rz = _axis_indices(mz, _CROP_BUCKET, floor=fl[2])
+        cd = compute_dtype()
+        if vol_t is not None:
+            img_dev = vol_t.permute(1, 2, 3, 0)
+        else:
+            # under "fast" the image goes up as bf16, as the JAX package ships it
+            img_dev = torch.from_numpy(np.ascontiguousarray(img, np.float32))
+            img_dev = img_dev.to(cd).to(dev).float()
+        x = torch.cat([img_dev, vox], -1)
+        x = x.index_select(0, torch.from_numpy(ix).to(dev))
+        x = x.index_select(1, torch.from_numpy(iy).to(dev))
+        x = x.index_select(2, torch.from_numpy(iz).to(dev)).to(cd)
+        if st is not None:      # the stage ends when its device work does
+            _sync(dev)
+    with spans.span("serve.cnn_forward", st, "cnn_forward"):
+        refined = cnn_forward(x[None])[0]
+        preds = refined.argmax(-1).to(torch.int16).cpu().numpy()
     preds = preds[:nx, :ny, :nz]
     out = np.zeros_like(sv_partition, dtype=np.int16)
     out[np.ix_(rx, ry, rz)] = preds
-    if stage_times is not None:
-        stage_times["gnn_forward"] = t1 - t0
-        stage_times["crop_and_prep"] = t2 - t1
-        stage_times["cnn_forward"] = t3 - t2
-        stage_times["cnn_crop_shape"] = [nx, ny, nz]
+    if st is not None:
+        st["cnn_crop_shape"] = [nx, ny, nz]
     return out
 
 
@@ -245,28 +241,24 @@ def predict_one_sample(gnn_forward, cnn_forward, graph, img: np.ndarray,
     (cropped-brain) volume. Returns int16 labels in training id space."""
     from ..data.image import determine_tumor_crop
 
-    rec = time.perf_counter
-    t0 = rec()
-    node_logits = gnn_forward(graph)[0].float().cpu().numpy()
-    node_logits = node_logits[: int(graph.n_nodes[0])]
-    t1 = rec()
-    voxel_logits = node_logits_to_voxel_logits(node_logits, sv_partition)
-    tumor_crop = determine_tumor_crop(voxel_logits.argmax(-1))
-    x = combine_logits_and_image(voxel_logits, img, tumor_crop)
-    true_shape = x.shape[:3]
-    x, _ = pad_to_bucket(x, floor=default_crop_floor())
-    # under "fast" the CNN computes in bf16 anyway: cast before the upload
-    x = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(compute_dtype())
-    t2 = rec()
-    refined = cnn_forward(x[None])[0]
-    preds = refined.argmax(-1).to(torch.int16).cpu().numpy()
-    t3 = rec()
+    st = stage_times
+    with spans.span("serve.gnn_forward", st, "gnn_forward"):
+        node_logits = gnn_forward(graph)[0].float().cpu().numpy()
+        node_logits = node_logits[: int(graph.n_nodes[0])]
+    with spans.span("serve.crop_and_prep", st, "crop_and_prep"):
+        voxel_logits = node_logits_to_voxel_logits(node_logits, sv_partition)
+        tumor_crop = determine_tumor_crop(voxel_logits.argmax(-1))
+        x = combine_logits_and_image(voxel_logits, img, tumor_crop)
+        true_shape = x.shape[:3]
+        x, _ = pad_to_bucket(x, floor=default_crop_floor())
+        # under "fast" the CNN computes in bf16 anyway: cast before the upload
+        x = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(compute_dtype())
+    with spans.span("serve.cnn_forward", st, "cnn_forward"):
+        refined = cnn_forward(x[None])[0]
+        preds = refined.argmax(-1).to(torch.int16).cpu().numpy()
     preds = preds[: true_shape[0], : true_shape[1], : true_shape[2]]
     out = np.zeros_like(sv_partition, dtype=np.int16)
     out[tumor_crop] = preds
-    if stage_times is not None:
-        stage_times["gnn_forward"] = t1 - t0
-        stage_times["crop_and_prep"] = t2 - t1
-        stage_times["cnn_forward"] = t3 - t2
-        stage_times["cnn_crop_shape"] = list(true_shape)
+    if st is not None:
+        st["cnn_crop_shape"] = list(true_shape)
     return out

@@ -19,11 +19,11 @@ from __future__ import annotations
 
 import argparse
 import os
-import time
 
 import numpy as np
 import torch
 
+from .. import spans
 from ..config import DEFAULT_MODALITY_EXTS, STANDARDIZATION_STATS
 from ..data import nifti
 from ..data.graph_build import build_graph_sample, sample_from_partition
@@ -46,10 +46,17 @@ def predict_single_mri(input_dir: str, gnn_forward, cnn_forward,
     """Full chain for one MRI directory -> BraTS-labelled full-size volume.
 
     gnn_forward and cnn_forward come from cli/common.load_*_from_checkpoint
-    and carry the device. stage_times, when given, is filled with per-stage
-    wall-clock of this run. cnn_prep='device' (default) keeps the GNN logits
-    on the card and gathers the CNN input crop there; 'host' builds it on
-    the host. Both give the same labels.
+    and carry the device. stage_times, when given, is filled with the
+    seconds of each stage, each from its span (spans.py, "serve.<key>"):
+    nifti_read, normalize (holding brain_crop), graph_build (holding, on
+    the host path, slic_host and, on both, stats and knn; on the device
+    path also slic_device, connectivity and stats_knn), gnn_forward,
+    crop_and_prep, cnn_forward, output, and request, the whole call; with
+    n_nodes and cnn_crop_shape. The request is one unit of the spans'
+    timeline (recent("serve.request") holds its stage_times).
+    cnn_prep='device' (default) keeps the GNN logits on the card and
+    gathers the CNN input crop there; 'host' builds it on the host. Both
+    give the same labels.
 
     prep_impl='device' runs the preprocessing on `device` (the card unless
     the caller asks for the CPU): ops/slic_device.serve_preprocess_device
@@ -63,65 +70,66 @@ def predict_single_mri(input_dir: str, gnn_forward, cnn_forward,
         raise ValueError(f"cnn_prep must be 'device' or 'host', got {cnn_prep!r}")
     if prep_impl not in ("device", "host"):
         raise ValueError(f"prep_impl must be 'device' or 'host', got {prep_impl!r}")
-    rec = time.perf_counter
+    st = stage_times
     modality_exts = modality_exts or DEFAULT_MODALITY_EXTS
-    t0 = rec()
-    image = nifti.read_in_patient_sample(input_dir, modality_exts)
-    t1 = rec()
-    mean = np.asarray(STANDARDIZATION_STATS[0], np.float32)
-    std = np.asarray(STANDARDIZATION_STATS[1], np.float32)
-    crop = determine_brain_crop(image)
-    cropped = image[crop]
-    if prep_impl == "device":
-        from ..ops.precision import fast_precision
-        from ..ops.slic_device import finalize_labels, serve_preprocess_device
+    with spans.unit("serve.request", st, "request"):
+        with spans.span("serve.nifti_read", st, "nifti_read"):
+            image = nifti.read_in_patient_sample(input_dir, modality_exts)
+        with spans.span("serve.normalize", st, "normalize"):
+            mean = np.asarray(STANDARDIZATION_STATS[0], np.float32)
+            std = np.asarray(STANDARDIZATION_STATS[1], np.float32)
+            with spans.span("serve.brain_crop", st, "brain_crop"):
+                crop = determine_brain_crop(image)
+                cropped = image[crop]
+            if prep_impl == "device":
+                from ..ops.precision import fast_precision
+                from ..ops.slic_device import finalize_labels, serve_preprocess_device
 
-        dev = resolve_device(device)
-        input_dtype = torch.bfloat16 if fast_precision() else torch.float32
-        t2 = rec()
-        labels_raw, vol, q, step = serve_preprocess_device(
-            cropped, num_nodes, boxiness, mean, std, sigma=1.0,
-            input_dtype=input_dtype, device=dev)
-        t2a = rec()
-        sv = finalize_labels(labels_raw, step)
-        t2b = rec()
-        # the raw partition streams to the card while the host computes the
-        # segment stats and kNN; the discard's renumbering, known only
-        # after them, is applied there through sample.sv_remap
-        sv_dev = ship_partition(sv, int(sv.max()) + 1, dev)
-        # standardized = raw / (q * std) - mean / std per modality
-        a = (1.0 / (q * std)).astype(np.float32)
-        b = (-mean / std).astype(np.float32)
-        sample = sample_from_partition(cropped, None, sv, num_neighbors,
-                                       feat_affine=(a, b))
-        graph = graph_from_arrays(sample.feats, sample.src, sample.dst)
-        t3 = rec()
-        if stage_times is not None:
-            stage_times["slic_device"] = t2a - t2
-            stage_times["connectivity"] = t2b - t2a
-            stage_times["stats_knn"] = t3 - t2b
-        pred = predict_one_sample_device(
-            gnn_forward, cnn_forward, graph, None, sample.sv_partition,
-            stage_times=stage_times, vol_t=vol, sv_raw_dev=sv_dev,
-            sv_remap=sample.sv_remap)
-    else:
-        standardized = standardize_img(normalize_img(cropped), mean, std)
-        t2 = rec()
-        sample = build_graph_sample(standardized, None, num_nodes, boxiness,
-                                    num_neighbors, slic_fn=slic_fn)
-        graph = graph_from_arrays(sample.feats, sample.src, sample.dst)
-        t3 = rec()
-        predict = (predict_one_sample_device if cnn_prep == "device"
-                   else predict_one_sample)
-        pred = predict(gnn_forward, cnn_forward, graph, standardized,
-                       sample.sv_partition, stage_times=stage_times)
-    if stage_times is not None:
-        stage_times["nifti_read"] = t1 - t0
-        stage_times["normalize"] = t2 - t1
-        stage_times["graph_build"] = t3 - t2
-        stage_times["n_nodes"] = int(graph.n_nodes[0])
-    pred = uncrop_to_brats_size(crop, pred, shape=image.shape[:3])
-    return swap_labels_to_brats(pred)
+                dev = resolve_device(device)
+                input_dtype = torch.bfloat16 if fast_precision() else torch.float32
+            else:
+                standardized = standardize_img(normalize_img(cropped), mean, std)
+        with spans.span("serve.graph_build", st, "graph_build"):
+            if prep_impl == "device":
+                with spans.span("serve.slic_device", st, "slic_device"):
+                    labels_raw, vol, q, step = serve_preprocess_device(
+                        cropped, num_nodes, boxiness, mean, std, sigma=1.0,
+                        input_dtype=input_dtype, device=dev)
+                with spans.span("serve.connectivity", st, "connectivity"):
+                    sv = finalize_labels(labels_raw, step)
+                with spans.span("serve.stats_knn", st, "stats_knn"):
+                    # the raw partition streams to the card while the host
+                    # computes the segment stats and kNN; the discard's
+                    # renumbering, known only after them, is applied there
+                    # through sample.sv_remap
+                    sv_dev = ship_partition(sv, int(sv.max()) + 1, dev)
+                    # standardized = raw / (q * std) - mean / std per modality
+                    a = (1.0 / (q * std)).astype(np.float32)
+                    b = (-mean / std).astype(np.float32)
+                    sample = sample_from_partition(cropped, None, sv, num_neighbors,
+                                                   feat_affine=(a, b),
+                                                   stage_times=st)
+                    graph = graph_from_arrays(sample.feats, sample.src, sample.dst)
+            else:
+                sample = build_graph_sample(standardized, None, num_nodes, boxiness,
+                                            num_neighbors, slic_fn=slic_fn,
+                                            stage_times=st)
+                graph = graph_from_arrays(sample.feats, sample.src, sample.dst)
+        if st is not None:
+            st["n_nodes"] = int(graph.n_nodes[0])
+        if prep_impl == "device":
+            pred = predict_one_sample_device(
+                gnn_forward, cnn_forward, graph, None, sample.sv_partition,
+                stage_times=st, vol_t=vol, sv_raw_dev=sv_dev,
+                sv_remap=sample.sv_remap)
+        else:
+            predict = (predict_one_sample_device if cnn_prep == "device"
+                       else predict_one_sample)
+            pred = predict(gnn_forward, cnn_forward, graph, standardized,
+                           sample.sv_partition, stage_times=st)
+        with spans.span("serve.output", st, "output"):
+            pred = uncrop_to_brats_size(crop, pred, shape=image.shape[:3])
+            return swap_labels_to_brats(pred)
 
 
 def build_parser() -> argparse.ArgumentParser:

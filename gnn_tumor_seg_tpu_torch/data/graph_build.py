@@ -13,8 +13,9 @@ Pipeline per sample (mirrors `graphgen.py:240-267`):
   (kNN over centroids with regularity enforcement, or voxel contiguity with
   self-loops) -> GraphSample.
 
-A copy of gnn_tumor_seg_tpu/data/graph_build.py: the port imports nothing of
-the JAX package, and its features and edge order must equal the JAX package's.
+A copy of gnn_tumor_seg_tpu/data/graph_build.py, with spans (spans.py)
+around its stages: the port imports nothing of the JAX package, and its
+features and edge order must equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import dataclasses
 
 import numpy as np
 
+from .. import spans
 from .slic import slic_supervoxels
 
 __all__ = [
@@ -223,6 +225,7 @@ def build_graph_sample(
     k: int | None = 10,
     slic_fn=None,
     weighted: bool = False,
+    stage_times: dict | None = None,
 ) -> GraphSample:
     """Full image -> graph conversion (reference: img2graph, `graphgen.py:240-267`).
 
@@ -231,12 +234,17 @@ def build_graph_sample(
     weighted=True attaches Gaussian intensity-similarity edge weights (the
     reference's weighted-adjacency option, `graphgen.py:142-150`, which its
     pipeline computes but never passes — img2graph hardcodes weighted=False).
+    stage_times, when given, gains the seconds of `slic_host` (the SLIC
+    call, with its connectivity pass) and those sample_from_partition adds.
     """
     multi = voxel_intensities.ndim == 4
     img = voxel_intensities if multi else voxel_intensities[..., None]
     slic_fn = slic_fn or slic_supervoxels
-    sv = slic_fn(img, n_segments=approx_num_nodes, compactness=boxiness, sigma=1.0)
-    return sample_from_partition(img, voxel_labels, sv, k, weighted=weighted)
+    with spans.span("serve.slic_host", stage_times, "slic_host"):
+        sv = slic_fn(img, n_segments=approx_num_nodes, compactness=boxiness,
+                     sigma=1.0)
+    return sample_from_partition(img, voxel_labels, sv, k, weighted=weighted,
+                                 stage_times=stage_times)
 
 
 def sample_from_partition(
@@ -246,6 +254,7 @@ def sample_from_partition(
     k: int | None,
     weighted: bool = False,
     feat_affine: tuple[np.ndarray, np.ndarray] | None = None,
+    stage_times: dict | None = None,
 ) -> GraphSample:
     """Partition -> GraphSample: segment stats, background discard, adjacency.
 
@@ -259,48 +268,55 @@ def sample_from_partition(
     normalize/standardize affine (a = 1/(q995*std), b = -mean/std) yields the
     standardized-space features without materializing a standardized volume on
     the host — the device-preprocess serve path's contract
-    (ops/slic_tpu.serve_preprocess_tpu)."""
+    (ops/slic_tpu.serve_preprocess_tpu).
+
+    stage_times, when given, gains the seconds of `stats` (segment
+    quantiles, mode and centroids, the affine and the discard) and `knn`
+    (knn_adjacency_edges)."""
     labels_provided = voxel_labels is not None
-    n_sv = int(sv.max()) + 1
-    if not labels_provided:
-        voxel_labels = np.zeros(img.shape[:3], np.int16)
+    with spans.span("serve.stats", stage_times, "stats"):
+        n_sv = int(sv.max()) + 1
+        if not labels_provided:
+            voxel_labels = np.zeros(img.shape[:3], np.int16)
 
-    flat_sv = sv.reshape(-1)
-    n_classes = max(int(voxel_labels.max()) + 1, 1)
-    from . import native
+        flat_sv = sv.reshape(-1)
+        n_classes = max(int(voxel_labels.max()) + 1, 1)
+        from . import native
 
-    if native.available():
-        feats = np.concatenate(
-            [native.segment_quantiles_native(img[..., c].reshape(-1), flat_sv,
-                                             n_sv, QUANTILES)
-             for c in range(img.shape[-1])], axis=1
+        if native.available():
+            feats = np.concatenate(
+                [native.segment_quantiles_native(img[..., c].reshape(-1), flat_sv,
+                                                 n_sv, QUANTILES)
+                 for c in range(img.shape[-1])], axis=1
+            )
+            sv_labels = native.segment_mode_native(
+                voxel_labels.reshape(-1).astype(np.int16), flat_sv, n_sv, n_classes
+            )
+            sv_centroids = native.segment_centroids_native(sv.astype(np.int32), n_sv)
+        else:
+            feats = np.concatenate(
+                [segment_quantiles(img[..., c].reshape(-1), flat_sv, n_sv)
+                 for c in range(img.shape[-1])], axis=1
+            )
+            sv_labels = segment_mode(voxel_labels.reshape(-1), flat_sv, n_sv,
+                                     n_classes)
+            sv_centroids = segment_centroids(sv.shape, flat_sv, n_sv)
+
+        if feat_affine is not None:
+            a, b = feat_affine
+            nq = len(QUANTILES)
+            feats = feats.astype(np.float32)
+            for c in range(img.shape[-1]):
+                feats[:, c * nq:(c + 1) * nq] *= np.float32(a[c])
+                feats[:, c * nq:(c + 1) * nq] += np.float32(b[c])
+
+        partition, feats, centroids, labels, sv_remap = discard_empty_supervoxels(
+            sv, feats, sv_centroids, sv_labels
         )
-        sv_labels = native.segment_mode_native(
-            voxel_labels.reshape(-1).astype(np.int16), flat_sv, n_sv, n_classes
-        )
-        sv_centroids = native.segment_centroids_native(sv.astype(np.int32), n_sv)
-    else:
-        feats = np.concatenate(
-            [segment_quantiles(img[..., c].reshape(-1), flat_sv, n_sv)
-             for c in range(img.shape[-1])], axis=1
-        )
-        sv_labels = segment_mode(voxel_labels.reshape(-1), flat_sv, n_sv, n_classes)
-        sv_centroids = segment_centroids(sv.shape, flat_sv, n_sv)
-
-    if feat_affine is not None:
-        a, b = feat_affine
-        nq = len(QUANTILES)
-        feats = feats.astype(np.float32)
-        for c in range(img.shape[-1]):
-            feats[:, c * nq:(c + 1) * nq] *= np.float32(a[c])
-            feats[:, c * nq:(c + 1) * nq] += np.float32(b[c])
-
-    partition, feats, centroids, labels, sv_remap = discard_empty_supervoxels(
-        sv, feats, sv_centroids, sv_labels
-    )
     n_nodes = feats.shape[0]
     if k:
-        src, dst = knn_adjacency_edges(centroids, k)
+        with spans.span("serve.knn", stage_times, "knn"):
+            src, dst = knn_adjacency_edges(centroids, k)
     else:
         src, dst = contiguity_edges(partition, n_nodes)
     edge_weights = None

@@ -26,7 +26,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .. import evaluation
+from .. import evaluation, spans
 from ..config import HyperParams
 from ..data.image import project_nodes_to_img
 from ..models.factory import SAGE_AGGREGATORS, init_graph_net
@@ -135,7 +135,7 @@ class HaloTrainer:
                 precision_scope(self.precision):
             losses = []
             for rg in self.graphs:
-                with torch.profiler.record_function("halo_train_step"):
+                with spans.span("halo_train_step"):
                     losses.append(self._step(rg, generator))
             mean_loss = float(torch.stack(losses).double().mean())
             seconds = time.perf_counter() - t0

@@ -53,7 +53,7 @@ import time
 import numpy as np
 import torch
 
-from .. import evaluation
+from .. import evaluation, spans
 from ..config import HyperParams
 from ..convert import CNN_KEYS
 from ..data.cache import LRUBytesCache
@@ -256,7 +256,7 @@ class CNNTrainer:
                 prep = self._load_and_prepare(mri_id)
                 if prep is None:
                     continue
-                with torch.profiler.record_function("cnn_train_step"):
+                with spans.span("cnn_train_step"):
                     losses.append(self._step(prep))
         # the epoch's one host synchronization
         values = (torch.stack(losses).cpu().numpy() if losses

@@ -19,6 +19,13 @@ The JAX trainer's behaviour, step for step:
     copies on the card) stay on the device; a step makes no host round trip,
     and an epoch synchronizes once, when it reads its losses.
 
+`last_epoch_stats` holds the epoch's wall (`seconds`, the span of the unit
+"train.epoch", spans.py) and `host_s`, the host's seconds by phase of the
+step: `batch` (device-cache lookups, uploads on a miss, padding and
+batch_graphs), `forward` (model and loss), `backward`, `optim` (zero_grad
+and AdamW) and the epoch's one `epoch_sync`; with `cache_misses` and
+`upload_bytes`, the graphs and bytes copied to the device on misses.
+
 Metric vector of `evaluate`, as the reference: loss; WT/CT/ET node Dice;
 WT/CT/ET voxel Dice; WT/CT/ET HD95; plus predicted and true node-label counts
 (`model/gnn_model.py:51-74`).
@@ -33,10 +40,10 @@ import time
 import numpy as np
 import torch
 
-from .. import evaluation
+from .. import evaluation, spans
 from ..config import HyperParams
 from ..convert import load_gnn_params
-from ..data.cache import LRUBytesCache, device_cache_bytes
+from ..data.cache import LRUBytesCache, device_cache_bytes, nbytes_of
 from ..data.image import project_nodes_to_img
 from ..models.factory import init_graph_net
 from ..ops.graph import (DEGREE_BUCKETS, NODE_BUCKETS, GraphBatch, batch_graphs,
@@ -51,6 +58,8 @@ from .optim import (epoch_lr, load_opt_state_leaves, make_optimizer,
 __all__ = ["GNNTrainer", "restore_training_state"]
 
 _PRECISIONS = ("exact", "fast")
+# the host phases of a training step, and the epoch's synchronize
+HOST_PHASES = ("batch", "forward", "backward", "optim", "epoch_sync")
 
 
 def _dropout_seed(seed: int, epoch: int) -> int:
@@ -118,6 +127,7 @@ class GNNTrainer:
         self._shape_budget = None
         self.last_epoch_stats: dict = {}
         self.last_eval_stats: dict = {}
+        self._epoch_stats = self._new_epoch_stats()
         if train_data is not None:
             self._shape_budget = self._compute_shape_budget(train_data)
 
@@ -134,6 +144,11 @@ class GNNTrainer:
         return n_max, d_max
 
     # ---------------------------------------------------------------- step
+    @staticmethod
+    def _new_epoch_stats() -> dict:
+        return {"host_s": dict.fromkeys(HOST_PHASES, 0.0), "cache_misses": 0,
+                "upload_bytes": 0}
+
     def _get_graph(self, i: int) -> GraphBatch:
         """Sample i on the device; its real edges are counted on the host
         before the copy."""
@@ -144,15 +159,22 @@ class GNNTrainer:
                 self._edge_counts[i] = int(g.nbr_mask.sum())
             g = g.to(self.device)
             self._device_cache.put(i, g)
+            spans.count("cache_misses", 1, self._epoch_stats)
+            spans.count("upload_bytes", nbytes_of(g), self._epoch_stats)
         return g
 
     def _step(self, batch: GraphBatch, generator: torch.Generator) -> torch.Tensor:
-        logits = self.model(batch, train=True, generator=generator)
-        loss = weighted_cross_entropy(logits, batch.labels, self.class_weights,
-                                      batch.node_mask)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.optimizer.step()
+        host_s = self._epoch_stats["host_s"]
+        with spans.span("train.forward", host_s, "forward"):
+            logits = self.model(batch, train=True, generator=generator)
+            loss = weighted_cross_entropy(logits, batch.labels,
+                                          self.class_weights, batch.node_mask)
+        with spans.span("train.optim", host_s, "optim"):
+            self.optimizer.zero_grad(set_to_none=True)
+        with spans.span("train.backward", host_s, "backward"):
+            loss.backward()
+        with spans.span("train.optim", host_s, "optim"):
+            self.optimizer.step()
         return loss.detach()
 
     def _dropout_seed(self) -> int:
@@ -181,30 +203,32 @@ class GNNTrainer:
         n_pad, d_pad = self._shape_budget
         losses = []
         edges = 0
-        t0 = time.perf_counter()
-        with precision_scope(self.precision):
-            for idx, size, pad_from in self._epoch_batches(order):
-                graphs = []
-                for i in idx:
-                    graphs.append(self._get_graph(int(i)))
-                    edges += self._edge_counts[int(i)]
-                if len(graphs) < size:    # remainder batch: same shape
-                    pad = masked_copy(graphs[0] if graphs
-                                      else self._get_graph(int(pad_from)))
-                    graphs += [pad] * (size - len(graphs))
-                batch = batch_graphs(graphs, n_pad=n_pad, d_pad=d_pad)
-                with torch.profiler.record_function("gnn_train_step"):
-                    losses.append(self._step(batch, generator))
-        # the epoch's one host synchronization
-        mean_loss = float(torch.stack(losses).double().mean())
-        dt = time.perf_counter() - t0
-        self.last_epoch_stats = {
-            "seconds": dt,
-            "steps": len(losses),
-            "edges_per_s": edges * self.model.num_layers / max(dt, 1e-9),
-            "impl": "cuda" if self.device.type == "cuda" else "plain",
-            "precision": self.precision,
-        }
+        stats = self._epoch_stats = self._new_epoch_stats()
+        host_s = stats["host_s"]
+        with spans.unit("train.epoch", stats, "seconds"):
+            with precision_scope(self.precision):
+                for idx, size, pad_from in self._epoch_batches(order):
+                    with spans.span("train.batch", host_s, "batch"):
+                        graphs = []
+                        for i in idx:
+                            graphs.append(self._get_graph(int(i)))
+                            edges += self._edge_counts[int(i)]
+                        if len(graphs) < size:    # remainder batch: same shape
+                            pad = masked_copy(graphs[0] if graphs
+                                              else self._get_graph(int(pad_from)))
+                            graphs += [pad] * (size - len(graphs))
+                        batch = batch_graphs(graphs, n_pad=n_pad, d_pad=d_pad)
+                    with spans.span("gnn_train_step"):
+                        losses.append(self._step(batch, generator))
+            # the epoch's one host synchronization
+            with spans.span("train.epoch_sync", host_s, "epoch_sync"):
+                mean_loss = float(torch.stack(losses).double().mean())
+        stats.update(
+            steps=len(losses),
+            edges_per_s=edges * self.model.num_layers / max(stats["seconds"], 1e-9),
+            impl="cuda" if self.device.type == "cuda" else "plain",
+            precision=self.precision)
+        self.last_epoch_stats = stats
         self.epoch += 1
         return mean_loss
 

@@ -199,3 +199,39 @@ def test_cli_device_preprocess_matches_host(case, tmp_path, flags):
     want = nifti.read_nifti(str(tmp_path / "host" / "case.nii.gz"), np.int16)
     assert got.shape == SHAPE and set(np.unique(got)) <= {0, 1, 2, 4}
     assert (got == want).mean() >= 0.999
+
+
+TOP_STAGES = ("nifti_read", "normalize", "graph_build", "gnn_forward",
+              "crop_and_prep", "cnn_forward", "output")
+
+
+@pytest.mark.parametrize("prep_impl,cnn_prep,nested", [
+    ("host", "device", ("brain_crop", "slic_host", "stats", "knn")),
+    ("host", "host", ("brain_crop", "slic_host", "stats", "knn")),
+    ("device", "device", ("brain_crop", "slic_device", "connectivity",
+                          "stats_knn", "stats", "knn")),
+])
+def test_stage_spans_cover_the_request(case, prep_impl, cnn_prep, nested):
+    """stage_times from the serve spans: every stage key, the request's
+    wall in `request`, and the top-level stages covering it (they are
+    disjoint, so their sum stays within it); the request is the last unit
+    of recent("serve.request")."""
+    from gnn_tumor_seg_tpu_torch import spans
+
+    raw_case, gnn_ckpt, cnn_ckpt = case
+    _, _, gfwd = load_gnn_from_checkpoint(gnn_ckpt, device="cpu")
+    _, _, cfwd = load_cnn_from_checkpoint(cnn_ckpt, device="cpu")
+    st = {}
+    with precision_scope("exact"):
+        port_cli.predict_single_mri(str(raw_case), gfwd, cfwd,
+                                    num_nodes=NUM_NODES, num_neighbors=K,
+                                    cnn_prep=cnn_prep, prep_impl=prep_impl,
+                                    device="cpu", stage_times=st)
+    assert set(TOP_STAGES + nested + ("request", "n_nodes", "cnn_crop_shape",
+                                      "profiled")) == set(st)
+    top = sum(st[k] for k in TOP_STAGES)
+    assert st["request"] >= top >= 0.95 * st["request"], st
+    assert st["normalize"] >= st["brain_crop"]
+    inner = st["stats_knn"] if prep_impl == "device" else st["graph_build"]
+    assert inner >= st["stats"] + st["knn"]
+    assert spans.recent("serve.request")[-1] is st and st["profiled"] is False

@@ -127,3 +127,58 @@ def test_optimizer_checkpoints_cross_both_ways(tmp_path):
         GNNTrainer("GSmean", HyperParams(**HP), data, device="cpu").restore(
             str(tmp_path / "jax.ckpt"))
     assert torch.equal(resumed.class_weights, torch.tensor([0.1, 1, 2, 2]))
+
+
+def test_epoch_host_phases_and_device_cache_counters(monkeypatch):
+    """last_epoch_stats: the host's seconds by phase of the step cover the
+    epoch, and the device cache's misses and upload bytes count the first
+    epoch's copies; with no profiler no step opens a record_function."""
+    from gnn_tumor_seg_tpu_torch import spans
+    from gnn_tumor_seg_tpu_torch.data.cache import nbytes_of
+    from gnn_tumor_seg_tpu_torch.train.gnn_trainer import HOST_PHASES
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) opened with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    data = SyntheticGraphDataset(n_samples=7, grid=5, seed=3)
+    t = GNNTrainer("GSpool", HyperParams(**HP), data, seed=0, device="cpu")
+    for epoch in range(2):
+        t.run_epoch()
+        s = t.last_epoch_stats
+        assert set(s["host_s"]) == set(HOST_PHASES)
+        assert all(v > 0 for v in s["host_s"].values())
+        assert 0.8 * s["seconds"] <= sum(s["host_s"].values()) <= 1.005 * s["seconds"]
+        assert s["cache_misses"] == (len(data) if epoch == 0 else 0)
+        want = sum(nbytes_of(data.get_graph(i)) for i in range(len(data)))
+        assert s["upload_bytes"] == (want if epoch == 0 else 0)
+        assert s["profiled"] is False and spans.recent("train.epoch")[-1] is s
+
+
+def test_step_spans_in_a_profile():
+    """Under torch.profiler each step is one gnn_train_step holding its
+    four phase spans, and the timeline's spans of the epoch share its unit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnn_tumor_seg_tpu_torch import spans
+
+    data = SyntheticGraphDataset(n_samples=7, grid=5, seed=3)
+    t = GNNTrainer("GSpool", HyperParams(**HP), data, seed=0, device="cpu")
+    t.run_epoch()
+    spans.timeline()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t.run_epoch()
+    entries = spans.timeline()
+    steps = t.last_epoch_stats["steps"]
+    names = [e[0] for e in entries]
+    assert t.last_epoch_stats["profiled"] is True
+    for name, n in [("gnn_train_step", steps), ("train.batch", steps),
+                    ("train.forward", steps), ("train.backward", steps),
+                    ("train.optim", 2 * steps), ("train.epoch_sync", 1),
+                    ("train.epoch", 1)]:
+        assert names.count(name) == n, name
+        assert sum(ev.name == name for ev in prof.events()) == n, name
+    parents = {e[0]: e[3] for e in entries}
+    assert parents["train.forward"] == parents["train.optim"] == "gnn_train_step"
+    assert parents["train.batch"] == parents["gnn_train_step"] == "train.epoch"
+    assert len({e[4] for e in entries}) == 1
