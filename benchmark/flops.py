@@ -6,33 +6,23 @@ gradients), except the first layer's, whose input needs no gradient (two).
 
 from __future__ import annotations
 
-from .weights import gat_layers
+from .models import load
 
 
 def sage_pool_layer(n: int, e: int, fi: int, fo: int) -> float:
-    return 2.0 * n * fi * fi + 4.0 * n * fi * fo + 1.0 * e * fi
+    """models/GSpool.py's, under the name its readers import."""
+    return load("GSpool").sage_pool_layer(n, e, fi, fo)
 
 
 def gat_layer(n: int, e: int, fi: int, fo: int, heads: int, w_res: bool) -> float:
-    hf = heads * fo
-    dense = 2.0 * n * fi * hf * (2 if w_res else 1) + 4.0 * n * hf
-    # per edge and head: score, LeakyReLU, exp, normalize; weighted sum of z
-    return dense + 4.0 * e * heads + 2.0 * e * hf
+    """models/GAT.py's, under the name its readers import."""
+    return load("GAT").gat_layer(n, e, fi, fo, heads, w_res)
 
 
 def gnn_layers(config: dict, n: int, e: int) -> list[float]:
     """Forward FLOPs of each layer of the configuration's GNN over n real
-    nodes and e real (directed) edges."""
-    if config["model"] == "GSpool":
-        dims = [config["in_feats"], *config["layer_sizes"], config["out_classes"]]
-        return [sage_pool_layer(n, e, a, b) for a, b in zip(dims[:-1], dims[1:])]
-    if config["model"] == "GAT":
-        layers = gat_layers(config["in_feats"], config["layer_sizes"],
-                            config["gat_heads"], config["gat_residuals"],
-                            config["out_classes"])
-        return [gat_layer(n, e, fi, fo, h, res and fi != h * fo)
-                for fi, fo, h, res in layers]
-    raise ValueError(f"no FLOP count for model {config['model']!r}")
+    nodes and e real (directed) edges: models/<model>.py's layer_flops."""
+    return load(config["model"]).layer_flops(config, n, e)
 
 
 def gnn_forward(config: dict, n: int, e: int) -> float:

@@ -10,6 +10,8 @@ is a file of its own (README.md):
   benchmark/kinds/<kind>.py           the generator and driver of a kind
   benchmark/workloads/<cell>.json     the cell's limits of `correct`
   benchmark/metrics/<metric>.py       a per-layer metric's reader
+  benchmark/models/<model>.py         a configuration's model: weights,
+                                      plain forward, FLOPs, kernel names
 """
 
 from __future__ import annotations
@@ -122,15 +124,23 @@ class Run:
         self.marks.append((name, time.perf_counter()))
 
 
-def device_info(device) -> dict:
+def device_info(device, devices=None) -> dict:
+    """The run's device: this process's, or where a kind's ranks ran in
+    processes of their own and it reports `devices` (the peak bytes of each
+    device they used), their number and the fullest one's peak."""
     import torch
 
     if device.type != "cuda":
-        return {"platform": "cpu", "kind": "cpu", "count": 1,
+        info = {"platform": "cpu", "kind": "cpu", "count": 1,
                 "memory_peak_bytes": 0}
-    return {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
-            "count": 1,
-            "memory_peak_bytes": int(torch.cuda.max_memory_allocated(device))}
+    else:
+        info = {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
+                "count": 1,
+                "memory_peak_bytes": int(torch.cuda.max_memory_allocated(device))}
+    if devices:
+        info.update(count=len(devices),
+                    memory_peak_bytes=max(int(b) for b in devices))
+    return info
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda",
@@ -165,7 +175,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda",
         out = kind.window(state, run)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        dev_info = device_info(dev)
+        dev_info = device_info(dev, out.get("devices"))
         numbers = kind.judge(state, run)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)

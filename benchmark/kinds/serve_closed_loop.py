@@ -31,7 +31,7 @@ import time
 import numpy as np
 import torch
 
-from .. import inputs, weights
+from .. import inputs, models, weights
 from ..reference import serve as ref
 
 
@@ -148,10 +148,7 @@ def setup(run):
     run.mark("inputs")
     w, cw, brains = made["weights"], made["cnn_weights"], made["brains"]
     cnn = cfg["cnn"]
-    hp = HyperParams(in_feats=cfg["in_feats"], out_classes=cfg["out_classes"],
-                     layer_sizes=list(cfg["layer_sizes"]),
-                     gat_heads=cfg.get("gat_heads"),
-                     gat_residuals=cfg.get("gat_residuals"))
+    hp = models.hyperparams(HyperParams, cfg)
     model = init_graph_net(cfg["model"], hp)
     weights.load_into(model.jax_parameters(), w, made["specs"])
     gnn_ckpt = os.path.join(run.scratch, "gnn.ckpt")

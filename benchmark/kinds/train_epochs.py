@@ -21,8 +21,15 @@ read from the device cache, which the reference takes from the copied
 state at that epoch's learning rate and shuffle (`window_loss_err`,
 `window_grad_err`, `window_change_err`).
 
-Traffic parameters: epoch_graphs, graphs, nodes, grid, k, precision,
-check_steps.
+The trainer pads every batch to the degree bucket of its whole training
+set (`shape_budget`). The `graphs` distinct graphs of a run reach a degree
+of 16 or 17 by seed, where the set of `epoch_graphs` distinct graphs that
+an epoch stands for reaches more; so the data's degree budget is at least
+`degree_budget`, and every seed pads to the same bucket: the seed does not
+choose the work of a step.
+
+Traffic parameters: epoch_graphs, graphs, nodes, grid, k, degree_budget,
+precision, check_steps.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import time
 import numpy as np
 import torch
 
-from .. import flops, inputs, weights
+from .. import flops, inputs, models, weights
 from ..reference import train as ref_train
 from ..reference.precision import REFERENCE
 
@@ -43,9 +50,10 @@ class EpochData:
     """The trainer's data protocol over `epoch_graphs` entries, entry i
     being graph `graph_of[i]` (host graphs, as a dataset returns them)."""
 
-    def __init__(self, graphs, graph_of):
+    def __init__(self, graphs, graph_of, degree_budget: int):
         self.graphs = graphs
         self.graph_of = graph_of
+        self.degree_budget = degree_budget
         self.ids = [f"entry_{i:05d}" for i in range(len(graph_of))]
 
     def __len__(self):
@@ -56,7 +64,7 @@ class EpochData:
 
     def shape_budget(self):
         return (max(g.num_nodes_padded for g in self.graphs),
-                max(g.max_degree for g in self.graphs))
+                max(self.degree_budget, *(g.max_degree for g in self.graphs)))
 
 
 # epochs the set-up runs: the window starts at this epoch
@@ -82,15 +90,7 @@ def _batches(coo, graph_of, order, bs: int, steps: int):
 def _hp(cfg: dict):
     from gnn_tumor_seg_tpu_torch.config import HyperParams
 
-    t = cfg["train"]
-    return HyperParams(in_feats=cfg["in_feats"], out_classes=cfg["out_classes"],
-                       layer_sizes=list(cfg["layer_sizes"]),
-                       gat_heads=cfg.get("gat_heads"),
-                       gat_residuals=cfg.get("gat_residuals"),
-                       lr=t["lr"], lr_decay=t["lr_decay"], w_decay=t["w_decay"],
-                       class_weights=list(t["class_weights"]),
-                       feature_dropout=t["feature_dropout"],
-                       batch_size=t["batch_size"])
+    return models.hyperparams(HyperParams, cfg, train=True)
 
 
 def make_inputs(run) -> dict:
@@ -159,7 +159,8 @@ def _keep_steps(trainer, named, n_check: int) -> dict:
 
 
 def setup(run):
-    from gnn_tumor_seg_tpu_torch.ops.graph import graph_from_arrays
+    from gnn_tumor_seg_tpu_torch.ops.graph import (DEGREE_BUCKETS, bucket_size,
+                                                   graph_from_arrays)
     from gnn_tumor_seg_tpu_torch.train.gnn_trainer import GNNTrainer
 
     cfg, dev = run.cell.config, run.device
@@ -169,7 +170,7 @@ def setup(run):
     specs, coo, w = made["specs"], made["coo"], made["weights"]
     graphs = [graph_from_arrays(f, s, d, y, rslot=True) for f, s, d, y in coo]
     run.mark("ell tables")
-    data = EpochData(graphs, made["graph_of"])
+    data = EpochData(graphs, made["graph_of"], run.param("degree_budget"))
     tseed, n = made["tseed"], len(made["graph_of"])
     trainer = GNNTrainer(cfg["model"], _hp(cfg), data, seed=tseed,
                          precision=run.param("precision"), device=dev)
@@ -187,10 +188,11 @@ def setup(run):
     start = _snapshot(trainer, named)
     window_kept = _keep_steps(trainer, named, run.param("check_steps"))
     bs = cfg["train"]["batch_size"]
-    # the shapes the roofline readers need, from the padded graphs
+    # the shapes the roofline readers need, from the padded graphs; every
+    # batch's neighbour table is as wide as the data's degree budget's bucket
     ell = [(int(g.nbr_mask.any(-1).sum()), int(g.nbr_mask.sum())) for g in graphs]
     shapes = {"B": bs, "N": graphs[0].num_nodes_padded,
-              "D": max(g.max_degree for g in graphs),
+              "D": bucket_size(data.shape_budget()[1], DEGREE_BUCKETS),
               "es": 2 if run.param("precision") == "fast" else 4,
               "referenced": bs * float(np.mean([r for r, _ in ell])),
               "live": bs * float(np.mean([r for r, _ in ell]))}

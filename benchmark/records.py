@@ -4,11 +4,16 @@ device time of the port's kernels by name in the trace."""
 
 from __future__ import annotations
 
-# the port's own CUDA kernels (gnn_tumor_seg_tpu_torch/ops/kernels/csrc)
-PORT_KERNELS = ("max_agg_kernel", "max_agg_bwd_kernel", "sum_agg_kernel",
-                "gat_fwd_kernel", "gat_bwd_kernel", "gat_rev_kernel",
-                "wsum_kernel", "pairdot_kernel", "slot_gather_kernel",
-                "slot_gather_bwd_kernel")
+from . import models
+
+# the port's own CUDA kernels (gnn_tumor_seg_tpu_torch/ops/kernels/csrc),
+# joined with those each model of benchmark/models/ names
+PORT_KERNELS = tuple(dict.fromkeys(
+    ("max_agg_kernel", "max_agg_bwd_kernel", "sum_agg_kernel",
+     "gat_fwd_kernel", "gat_bwd_kernel", "gat_rev_kernel",
+     "wsum_kernel", "pairdot_kernel", "slot_gather_kernel",
+     "slot_gather_bwd_kernel")
+    + sum((tuple(models.load(m).KERNELS) for m in models.names()), ())))
 
 
 def untraced(units: list[dict]) -> list[dict]:

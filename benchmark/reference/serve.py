@@ -273,6 +273,11 @@ def graph_features(std_vol: torch.Tensor, sv: torch.Tensor, prec: Precision):
     return prec.round(feats[keep]), prec.round(cent[keep]), remap
 
 
+def one_graph(feats: torch.Tensor) -> torch.Tensor:
+    """The graph index of a request's nodes: one graph, all zeros."""
+    return torch.zeros(feats.shape[0], dtype=torch.int64, device=feats.device)
+
+
 def knn_violations(cent: torch.Tensor, src, dst, k: int, tol: float = 1e-5) -> float:
     """Share of nodes whose edges break the regular kNN rule, judged on the
     edges as given: node i, reached in index order with the degree the
@@ -421,7 +426,8 @@ def judge(rec: dict, raw: np.ndarray, config: dict, weights: dict,
     ps = torch.as_tensor(np.asarray(rec["src"]), device=device).long()
     pd = torch.as_tensor(np.asarray(rec["dst"]), device=device).long()
     with torch.no_grad():
-        logits = gnn_ref.forward(config, weights, pf, ps, pd, REFERENCE)
+        logits = gnn_ref.forward(config, weights, pf, ps, pd, one_graph(pf),
+                                 REFERENCE)
     node_logits = torch.as_tensor(rec["node_logits"], device=device)[:logits.shape[0]]
     checks["gnn_err"] = _rel(node_logits, logits)
     # the CNN input from the program's partition and node logits
@@ -486,7 +492,8 @@ def control_record(raw: np.ndarray, config: dict, weights: dict,
     with torch.no_grad():
         logits = gnn_ref.forward(config, weights, f,
                                  torch.from_numpy(src).to(device),
-                                 torch.from_numpy(dst).to(device), prec).float()
+                                 torch.from_numpy(dst).to(device), one_graph(f),
+                                 prec).float()
     node_part = torch.where(part >= 0, remap[part], -1)
     vox = voxel_logits(logits.double(), node_part)
     cnn_crop = tumor_crop_indices(vox, params["crop_floor"])

@@ -22,15 +22,17 @@ EPS = 1e-8
 
 def union(graphs, device):
     """One graph of a batch's graphs (numpy feats, src, dst, labels each):
-    node ids offset, features and labels stacked."""
-    feats, src, dst, labels, off = [], [], [], [], 0
-    for f, s, d, y in graphs:
+    node ids offset, features and labels stacked; with each node's graph
+    index (its graph's place in the batch)."""
+    feats, src, dst, labels, graph, off = [], [], [], [], [], 0
+    for i, (f, s, d, y) in enumerate(graphs):
         feats.append(torch.from_numpy(np.asarray(f, np.float32)))
         src.append(torch.from_numpy(np.asarray(s, np.int64) + off))
         dst.append(torch.from_numpy(np.asarray(d, np.int64) + off))
         labels.append(torch.from_numpy(np.asarray(y, np.int64)))
+        graph.append(torch.full((len(f),), i, dtype=torch.int64))
         off += len(f)
-    return tuple(torch.cat(t).to(device) for t in (feats, src, dst, labels))
+    return tuple(torch.cat(t).to(device) for t in (feats, src, dst, labels, graph))
 
 
 def weighted_ce(logits, labels, class_weights):
@@ -56,8 +58,8 @@ def steps(config: dict, train: dict, weights: dict, batches, lrs,
     cw = torch.tensor(train["class_weights"], dtype=prec.dtype, device=device)
     losses, first_grad = [], None
     for t, (graphs, lr) in enumerate(zip(batches, lrs), start=t0 + 1):
-        feats, src, dst, labels = union(graphs, device)
-        logits = gnn.forward(config, params, feats, src, dst, prec)
+        feats, src, dst, labels, graph = union(graphs, device)
+        logits = gnn.forward(config, params, feats, src, dst, graph, prec)
         loss = weighted_ce(logits.to(prec.dtype), labels, cw)
         names = list(params)
         grads = torch.autograd.grad(loss, [params[k] for k in names])

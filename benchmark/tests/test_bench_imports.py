@@ -39,7 +39,7 @@ def test_no_jax_import(path):
     assert not top_level_imports(path) & JAX_NAMES
 
 
-@pytest.mark.parametrize("path", sorted(sources("reference")),
+@pytest.mark.parametrize("path", sorted(sources("reference")) + sorted(sources("models")),
                          ids=lambda p: os.path.relpath(p, BENCH))
 def test_reference_imports_nothing_of_the_program(path):
     names = top_level_imports(path)
@@ -76,7 +76,8 @@ def test_a_cpu_run_loads_no_jax():
 
 
 def test_reference_runs_without_the_program():
-    """The reference modules import with the program's package unreachable."""
+    """The reference modules and every model's import with the program's
+    package unreachable."""
     code = (
         "import sys; sys.path.insert(0, %r);"
         "import builtins; real = builtins.__import__\n"
@@ -86,6 +87,8 @@ def test_reference_runs_without_the_program():
         "    return real(name, *a, **k)\n"
         "builtins.__import__ = guard\n"
         "import benchmark.reference.serve, benchmark.reference.train, benchmark.reference.gnn\n"
+        "from benchmark import models\n"
+        "assert [models.load(m) for m in models.names()]\n"
         "print('OK')" % ROOT)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300)

@@ -17,6 +17,9 @@ SPAN_METRICS = [m for m in BENCH["per_layer"] if m["source"] == "program_span"]
 INNER = ["train.host_batch_ms", "train.host_forward_ms", "train.host_backward_ms",
          "train.host_optim_ms", "serve.brain_crop_s", "serve.stats_s", "serve.knn_s",
          "serve.slic_host_s"]
+# span metrics of the card's path alone: the replay of a captured CUDA graph
+# reads 0 on the CPU, where the trainer captures nothing
+CARD_ONLY = ["train.host_replay_ms"]
 
 
 def _reader(name):
@@ -31,8 +34,9 @@ def test_traced_run_reads_the_program_spans(cell):
     assert result["correct"]
     want = {m["name"] for m in SPAN_METRICS if cell in m["workloads"]}
     assert want <= set(result["metrics"])
-    assert all(math.isfinite(result["metrics"][k]["value"])
-               and result["metrics"][k]["value"] > 0 for k in want)
+    values = {k: result["metrics"][k]["value"] for k in want}
+    assert all(math.isfinite(v) and v >= 0 for v in values.values()), values
+    assert all(v > 0 for k, v in values.items() if k not in CARD_ONLY), values
 
 
 def test_readers_find_nothing_without_the_spans(monkeypatch):

@@ -63,3 +63,28 @@ def test_train_graphs_keep_the_degree_bucket():
         deg = np.bincount(d, minlength=len(f))
         assert len(f) == 7000 and deg.min() >= 1 and deg.max() <= 16
         assert set(np.unique(y)) <= {0, 1, 2, 3}
+
+
+def test_every_seed_pads_to_one_degree_bucket():
+    """The trainer's degree bucket comes from the traffic's `degree_budget`,
+    not from the degrees that a seed's few graphs happen to reach."""
+    import numpy as np
+
+    from benchmark import inputs
+    from benchmark.harness import load_cell
+    from benchmark.kinds.train_epochs import EpochData
+    from gnn_tumor_seg_tpu_torch.ops.graph import (DEGREE_BUCKETS, bucket_size,
+                                                   graph_from_arrays)
+
+    bench = load_benchmark(ROOT)
+    budgets = {load_cell(bench, c, ROOT).traffic["degree_budget"]
+               for c in CELLS if c.startswith("train")}
+    buckets = set()
+    for seed in range(3):
+        gen = inputs.seed_generator(seed, "cpu", 2)
+        graphs = [graph_from_arrays(*inputs.make_train_graph(gen, 300, (8, 8, 6)),
+                                    rslot=True) for _ in range(4)]
+        for budget in budgets:
+            data = EpochData(graphs, np.arange(4), budget)
+            buckets.add(bucket_size(data.shape_budget()[1], DEGREE_BUCKETS))
+    assert budgets == {17} and buckets == {24}

@@ -1,12 +1,12 @@
 """Seeded weights of a configuration, drawn on the device in one call.
 
 Both sides get these: the program has them copied into its models (in its
-checkpoint leaf order, which `param_specs` follows), the reference reads
-them by name. The bounds are the initializers' of the published models
-(DGL's SAGEConv and GATConv: Xavier uniform with gain sqrt(2); torch's
-Conv3d: Kaiming uniform with a = sqrt(5) and its uniform bias); the GNN
-biases, zero at initialization, are drawn within +-0.1 so that the check
-covers them (configs' `assumed`).
+checkpoint leaf order, which `model_specs` follows), the reference reads
+them by name. Each model's specs are in models/<model>.py. The bounds are
+the initializers' of the published models (DGL's SAGEConv and GATConv:
+Xavier uniform with gain sqrt(2); torch's Conv3d: Kaiming uniform with a =
+sqrt(5) and its uniform bias); the GNN biases, zero at initialization, are
+drawn within +-0.1 so that the check covers them (configs' `assumed`).
 """
 
 from __future__ import annotations
@@ -18,49 +18,17 @@ import torch
 GNN_BIAS_BOUND = 0.1
 
 
-def _xavier(fan_in: int, fan_out: int) -> float:
+def xavier(fan_in: int, fan_out: int) -> float:
     return math.sqrt(2.0) * math.sqrt(6.0 / (fan_in + fan_out))
-
-
-def sage_specs(dims: list[int]) -> list[tuple[str, tuple, float]]:
-    """GraphSAGE-pool: per layer b_pool, bias, w_neigh, w_pool, w_self."""
-    specs = []
-    for i, (fi, fo) in enumerate(zip(dims[:-1], dims[1:])):
-        specs += [(f"l{i}.b_pool", (fi,), GNN_BIAS_BOUND),
-                  (f"l{i}.bias", (fo,), GNN_BIAS_BOUND),
-                  (f"l{i}.w_neigh", (fi, fo), _xavier(fi, fo)),
-                  (f"l{i}.w_pool", (fi, fi), _xavier(fi, fi)),
-                  (f"l{i}.w_self", (fi, fo), _xavier(fi, fo))]
-    return specs
 
 
 def gat_layers(in_feats: int, layer_sizes, heads, residuals,
                out_classes: int) -> list[tuple[int, int, int, bool]]:
-    """(in, out, heads, residual) of each GAT layer: the input layer has no
-    residual, a hidden layer reads the previous width times its heads, the
-    output layer has one head."""
-    layers = [(in_feats, layer_sizes[0], heads[0], False)]
-    for i in range(1, len(layer_sizes)):
-        layers.append((layer_sizes[i - 1] * heads[i - 1], layer_sizes[i],
-                       heads[i], bool(residuals[i])))
-    layers.append((layer_sizes[-1] * heads[len(layer_sizes) - 1], out_classes,
-                   1, False))
-    return layers
+    """models/GAT.py's gat_layers, under the name its readers import."""
+    from .models import load
 
-
-def gat_specs(layers) -> list[tuple[str, tuple, float]]:
-    """GAT: per layer attn_l, attn_r, bias, w and, on a residual layer whose
-    input width is not heads x out, w_res."""
-    specs = []
-    for i, (fi, fo, h, res) in enumerate(layers):
-        hf = h * fo
-        specs += [(f"l{i}.attn_l", (h, fo), _xavier(h, fo)),
-                  (f"l{i}.attn_r", (h, fo), _xavier(h, fo)),
-                  (f"l{i}.bias", (hf,), GNN_BIAS_BOUND),
-                  (f"l{i}.w", (fi, hf), _xavier(fi, hf))]
-        if res and fi != hf:
-            specs.append((f"l{i}.w_res", (fi, hf), _xavier(fi, hf)))
-    return specs
+    return load("GAT").gat_layers(in_feats, layer_sizes, heads, residuals,
+                                  out_classes)
 
 
 def cnn_specs(in_feats: int, hidden: int, out_classes: int,
@@ -77,15 +45,10 @@ def cnn_specs(in_feats: int, hidden: int, out_classes: int,
 
 
 def model_specs(config: dict) -> list[tuple[str, tuple, float]]:
-    m = config["model"]
-    if m == "GSpool":
-        return sage_specs([config["in_feats"], *config["layer_sizes"],
-                           config["out_classes"]])
-    if m == "GAT":
-        return gat_specs(gat_layers(config["in_feats"], config["layer_sizes"],
-                                    config["gat_heads"], config["gat_residuals"],
-                                    config["out_classes"]))
-    raise ValueError(f"no weights for model {m!r}")
+    """The configuration's model's weights: models/<model>.py's specs."""
+    from .models import load
+
+    return load(config["model"]).specs(config)
 
 
 def draw(specs, gen: torch.Generator) -> dict[str, torch.Tensor]:
