@@ -4,7 +4,7 @@ on the GPU (counterpart of gnn_tumor_seg_tpu/cli/predict_single.py).
 An input directory with one MRI's four modalities `*_{flair,t1,t1ce,t2}.nii.gz`
 produces `<output>/<id>.nii.gz` with BraTS labels and the standard affine:
 preprocess in memory, the GNN forward of the checkpoint's model (GSpool,
-GSmean, GSgcn or GAT, through the Hopper kernels), CNN refinement, uncrop,
+GSmean, GSgcn, GAT or GPS, through the Hopper kernels), CNN refinement, uncrop,
 label swap, save. With --prep_impl device (the default with --slic_impl tpu)
 normalization, standardization, smoothing and SLIC run on the card from one
 upload of the raw crop (ops/slic_device.py), and the standardized volume

@@ -8,7 +8,7 @@ CLI, single-device regime; k=1 trains on the full dataset. Checkpoints
 directory, in the JAX package's formats.
 
   python -m gnn_tumor_seg_tpu_torch.cli.train_gnn -d <processed> -o <logs> -r run1 \\
-      [-m GSpool|GSmean|GSgcn|GAT] [-k K] [-x] [--hp KEY=VAL ...] \\
+      [-m GSpool|GSmean|GSgcn|GAT|GPS] [-k K] [-x] [--hp KEY=VAL ...] \\
       [--resume_from CKPT] [--profile DIR] [--device cuda|cpu]
 
 Runs on the GPU unless --device cpu is given (then every aggregation and
@@ -281,7 +281,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Log directory (weights + progress file)")
     p.add_argument("-r", "--run_name", required=True, type=str)
     p.add_argument("-m", "--model_type", default="GSpool", type=str,
-                   help="GSpool, GSmean, GSgcn or GAT")
+                   help="GSpool, GSmean, GSgcn, GAT or GPS (one device)")
     p.add_argument("-k", "--num_folds", default=5, type=int,
                    help="k-fold validation folds; 1 = train on full dataset")
     p.add_argument("-p", "--data_prefix", default="", type=str)

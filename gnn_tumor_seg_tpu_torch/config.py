@@ -5,7 +5,10 @@ random_hyperparameters, DEFAULT_BACKGROUND_NODE_LOGITS) and of the
 standardization constants of
 gnn_tumor_seg_tpu/data/preprocess.py: the port imports nothing of the JAX
 package, and a checkpoint's embedded HyperParams JSON must read the same in
-both packages.
+both packages. The GPS fields (gps_heads, gps_post_layers) and the "GPS"
+defaults are the port's own: the JAX package has no GPS, and its
+HyperParams.from_json drops fields it does not know. to_json leaves them out
+where they are unset, so every other model's JSON is the JAX package's.
 """
 
 from __future__ import annotations
@@ -47,6 +50,10 @@ STANDARDIZATION_STATS = (
 DEFAULT_MODALITY_EXTS = ["_flair.nii.gz", "_t1.nii.gz", "_t1ce.nii.gz", "_t2.nii.gz"]
 
 
+# fields the JAX package's HyperParams lacks (GPS's)
+_PORT_ONLY_FIELDS = ("gps_heads", "gps_post_layers")
+
+
 @dataclass
 class HyperParams:
     n_epochs: int = 10
@@ -60,10 +67,16 @@ class HyperParams:
     feature_dropout: float = DEFAULT_FEATURE_DROPOUT
     gat_heads: list | None = None
     gat_residuals: list | None = None
+    gps_heads: int | None = None          # GPS: attention heads a layer
+    gps_post_layers: int | None = None    # GPS: layers of the node head
     batch_size: int = 6          # graphs per GNN step (model/gnn_model.py:12)
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self))
+        d = dataclasses.asdict(self)
+        for k in _PORT_ONLY_FIELDS:
+            if d[k] is None:
+                del d[k]
+        return json.dumps(d)
 
     @classmethod
     def from_json(cls, s: str) -> "HyperParams":
@@ -91,6 +104,13 @@ def hardcoded_hyperparameters(model_type: str) -> HyperParams:
     if model_type == "GAT":
         hp.gat_heads = [4, 4, 3, 3, 4, 4][: len(hp.layer_sizes)]
         hp.gat_residuals = [False, False, True, False, False, True][: len(hp.layer_sizes)]
+    if model_type == "GPS":
+        # GraphGPS's PascalVOC-SP configuration (configs/GPS/
+        # vocsuperpixels-GPS.yaml): 4 layers of 96, 8 heads, a 3-layer
+        # head, AdamW lr 5e-4 without weight decay
+        hp.layer_sizes = [96] * 4
+        hp.gps_heads, hp.gps_post_layers = 8, 3
+        hp.lr, hp.w_decay = 5e-4, 0.0
     return hp
 
 
@@ -131,4 +151,6 @@ def random_hyperparameters(model_type: str, seed: int | None = None) -> HyperPar
     residuals = [bool(x) for x in rng.binomial(1, p=0.3, size=len(hp.layer_sizes))]
     if model_type == "GAT":
         hp.gat_heads, hp.gat_residuals = heads, residuals
+    if model_type == "GPS":             # VOC-SP's heads and head; 8 divides every width
+        hp.gps_heads, hp.gps_post_layers = 8, 3
     return hp

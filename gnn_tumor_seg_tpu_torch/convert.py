@@ -12,7 +12,8 @@ for a mean layer bias, w_neigh, w_self; for a gcn layer bias, w_neigh
 on a residual layer whose width changes, w_res (models/gat.py,
 GatConv.keys); for the CNN conv0/b, conv0/w, conv1/b, conv1/w.
 train/checkpoint.py stores leaves in that order, so one checkpoint file
-loads in both packages.
+loads in both packages. GPS (models/gps.py) has no JAX counterpart: its
+checkpoints hold the port's own leaf order and nothing here converts it.
 """
 
 from __future__ import annotations
@@ -69,6 +70,9 @@ def gnn_params_from_jax(params: list[dict], dropout: float = 0.0,
 def load_gnn_params(model: GraphSage | GAT, params: list[dict]) -> None:
     """Copy the JAX GraphSage or GAT parameters `params` into `model`'s own
     parameters in place (an optimizer holding them keeps them)."""
+    if not isinstance(model, (GraphSage, GAT)):
+        raise TypeError(f"a {type(model).__name__} has no JAX parameter "
+                        "layout to load (GPS checkpoints: train/checkpoint.py)")
     if len(params) != model.num_layers:
         raise ValueError(f"{len(params)} layers of parameters for a model of "
                          f"{model.num_layers}")

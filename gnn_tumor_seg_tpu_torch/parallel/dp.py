@@ -137,6 +137,11 @@ class ParallelGNNTrainer(GNNTrainer):
         if mesh is None:
             raise ValueError("ParallelGNNTrainer needs the rank's mesh "
                              "(parallel/mesh.initialize_multihost)")
+        if model_type == "GPS":
+            raise NotImplementedError(
+                "GPS normalizes by its batch's statistics; data parallelism "
+                "would need them synchronized over the ranks, which the port "
+                "does not do: train GPS on one device")
         if hp.batch_size % mesh.n_data:
             raise ValueError(f"global batch_size {hp.batch_size} must divide "
                              f"evenly over {mesh.n_data} data ranks")

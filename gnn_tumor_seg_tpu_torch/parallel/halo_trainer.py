@@ -53,6 +53,11 @@ def init_halo_net(model_type: str, hp: HyperParams, mesh: Mesh,
     model, drawn from `generator`, wrapped for the partitioned regime)."""
     if variant not in _VARIANTS:
         raise ValueError(f"unknown halo variant {variant!r}")
+    if model_type == "GPS":
+        raise NotImplementedError(
+            "GPS attends over every node of a graph and normalizes by the "
+            "batch's statistics; the halo regime partitions nodes and has "
+            "neither: train GPS on one device")
     if variant == "p2p" and halo_width is None:
         raise ValueError("variant='p2p' requires halo_width")
     base = init_graph_net(model_type, hp, generator)

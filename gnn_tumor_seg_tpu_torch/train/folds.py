@@ -54,6 +54,9 @@ def create_run_progress_file(fp: str, model_type: str, hp) -> None:
         if model_type == "GAT":
             f.write(f"Heads\t{hp.gat_heads}\n")
             f.write(f"Residuals\t{hp.gat_residuals}\n")
+        if model_type == "GPS":
+            f.write(f"Heads\t{hp.gps_heads}\n")
+            f.write(f"Post layers\t{hp.gps_post_layers}\n")
         f.write("Fold\tLoss\tWT_Dice\tCT_Dice\tET_Dice\n\n")
 
 

@@ -43,7 +43,9 @@ batch_graphs, into a graph's static batch where one is kept), `forward`
 captured step's replay and the clone of its loss) and the epoch's one
 `epoch_sync`; with `cache_misses` and `upload_bytes`, the graphs and bytes
 copied to the device on misses, and `graph_captures` and `graph_replays`,
-the steps captured and replayed.
+the steps captured and replayed. A model with `step_counts` (GPS: its
+attention pairs, `attn_pairs` and `attn_real_pairs`) adds its counters of
+every step, replayed or eager, from the batch's node counts on the host.
 
 Metric vector of `evaluate`, as the reference: loss; WT/CT/ET node Dice;
 WT/CT/ET voxel Dice; WT/CT/ET HD95; plus predicted and true node-label counts
@@ -70,7 +72,8 @@ from ..ops.graph import (DEGREE_BUCKETS, NODE_BUCKETS, GraphBatch, batch_graphs,
                          batch_spec, bucket_size, masked_copy)
 from ..ops.precision import get_precision_mode, precision_scope
 from ..runtime import resolve_device
-from .checkpoint import load_checkpoint, load_opt_state, save_checkpoint
+from .checkpoint import (load_buffer_leaves, load_checkpoint, load_opt_state,
+                         save_checkpoint)
 from .losses import weighted_cross_entropy, weighted_cross_entropy_per_graph
 from .optim import (epoch_lr, load_opt_state_leaves, make_optimizer,
                     opt_state_leaves, set_lr)
@@ -117,7 +120,9 @@ class _CapturedStep:
 def restore_training_state(path: str, model, optimizer, model_type: str,
                            shard=None) -> int | None:
     """Load a checkpoint's parameters into `model` (in place, JAX flatten
-    order) and, when it has them, its optimizer state into `optimizer`.
+    order; a GPS's own order, and its running statistics where the
+    checkpoint has them) and, when it has them, its optimizer state into
+    `optimizer`.
     `shard(i, leaf)`, when given, maps parameter i's whole leaf (and its two
     moments) to the part the model holds (tensor parallelism). Returns the
     checkpoint's epoch counter, or None."""
@@ -139,6 +144,8 @@ def restore_training_state(path: str, model, optimizer, model_type: str,
                 raise ValueError(f"checkpoint leaf {np.shape(leaf)} does "
                                  f"not match a parameter of {tuple(p.shape)}")
             p.copy_(torch.tensor(np.asarray(leaf, np.float32)))
+    if "buffers" in manifest:
+        load_buffer_leaves(model, manifest["buffers"])
     opt = load_opt_state(path)
     if opt is not None:
         head, moments = opt[:len(opt) - 2 * n], opt[len(opt) - 2 * n:]
@@ -178,6 +185,7 @@ class GNNTrainer:
         self.train_data = train_data
         self._device_cache = LRUBytesCache(device_cache_bytes())
         self._edge_counts: dict[int, int] = {}
+        self._node_counts: dict[int, int] = {}
         self._shape_budget = None
         self.last_epoch_stats: dict = {}
         self.last_eval_stats: dict = {}
@@ -204,13 +212,14 @@ class GNNTrainer:
                 "upload_bytes": 0, "graph_captures": 0, "graph_replays": 0}
 
     def _get_graph(self, i: int) -> GraphBatch:
-        """Sample i on the device; its real edges are counted on the host
-        before the copy."""
+        """Sample i on the device; its real edges and nodes are counted on
+        the host before the copy."""
         g = self._device_cache.get(i)
         if g is None:
             g = self.train_data.get_graph(i)
             if i not in self._edge_counts:
                 self._edge_counts[i] = int(g.nbr_mask.sum())
+                self._node_counts[i] = int(g.n_nodes.sum())
             g = g.to(self.device)
             self._device_cache.put(i, g)
             spans.count("cache_misses", 1, self._epoch_stats)
@@ -318,6 +327,7 @@ class GNNTrainer:
         set_lr(self.optimizer, epoch_lr(self.hp.lr, self.hp.lr_decay,
                                         self.epoch))
         n_pad, d_pad = self._shape_budget
+        step_counts = getattr(self.model, "step_counts", None)
         losses = []
         edges = 0
         stats = self._epoch_stats = self._new_epoch_stats()
@@ -339,6 +349,11 @@ class GNNTrainer:
                             out=self._static_batch(graphs, n_pad, d_pad))
                     with spans.span("gnn_train_step"):
                         losses.append(self._step(batch, generator))
+                    if step_counts is not None:
+                        nodes = [self._node_counts[int(i)] for i in idx]
+                        nodes += [0] * (size - len(nodes))
+                        for k, v in step_counts(nodes, n_pad).items():
+                            spans.count(k, v, stats)
             # the epoch's one host synchronization
             with spans.span("train.epoch_sync", host_s, "epoch_sync"):
                 mean_loss = float(torch.stack(losses).double().mean())
@@ -453,7 +468,7 @@ class GNNTrainer:
 
     def load_params(self, params: list[dict]) -> None:
         """Set the parameters from the JAX model's parameter list (GraphSage
-        or GAT, as the trainer's model)."""
+        or GAT, as the trainer's model; a GPS has no JAX counterpart)."""
         load_gnn_params(self.model, params)
         self._drop_graphs()
 

@@ -2,8 +2,9 @@
 
 Every module of gnn_tumor_seg_tpu_torch is imported in a fresh interpreter
 in which importing `jax` or `gnn_tumor_seg_tpu` fails, and one CPU training
-epoch and evaluation of GSpool, of GAT and of the refinement CNN, and one
-epoch of each distributed trainer on a one-rank gloo group, run there;
+epoch and evaluation of GSpool, of GAT, of GPS and of the refinement CNN,
+and one epoch of each distributed trainer on a one-rank gloo group, run
+there;
 the interpreter must then hold no `jax` and no `gnn_tumor_seg_tpu` module,
 and no `matplotlib` (viz/ and the plot CLIs import it only where they
 draw). Importing must also build nothing: the kernels are compiled at first
@@ -31,8 +32,8 @@ import gnn_tumor_seg_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-# one CPU training epoch and an evaluation of GSpool and of GAT, so the
-# imports made inside functions on the training paths run too
+# one CPU training epoch and an evaluation of GSpool, of GAT and of GPS, so
+# the imports made inside functions on the training paths run too
 from gnn_tumor_seg_tpu_torch.config import HyperParams
 from gnn_tumor_seg_tpu_torch.data.synthetic import SyntheticGraphDataset
 from gnn_tumor_seg_tpu_torch.train.gnn_trainer import GNNTrainer
@@ -45,6 +46,10 @@ gat = GNNTrainer("GAT", HyperParams(layer_sizes=[4], batch_size=2, gat_heads=[2]
                                     gat_residuals=[False]), data, device="cpu")
 gat.run_epoch()
 gat.evaluate(data)
+gps = GNNTrainer("GPS", HyperParams(layer_sizes=[4], batch_size=2, gps_heads=2,
+                                    gps_post_layers=2), data, device="cpu")
+gps.run_epoch()
+gps.evaluate(data)
 # and of the refinement CNN, on one tiny image with a saved logit volume
 import tempfile
 import numpy as np

@@ -77,7 +77,7 @@ def test_logits_and_gradients_match_jax(graphs, model_type):
 
 def test_factory_builds_every_sage_type_and_round_trips():
     hp = HyperParams(layer_sizes=[16, 16])
-    assert GRAPH_MODEL_TYPES == ("GSpool", "GSmean", "GSgcn", "GAT")
+    assert GRAPH_MODEL_TYPES == ("GSpool", "GSmean", "GSgcn", "GAT", "GPS")
     for model_type, agg in AGG.items():
         model = init_graph_net(model_type, hp, torch.Generator().manual_seed(0))
         assert model.aggregator == agg and model.num_layers == 3
