@@ -11,12 +11,14 @@ Phases; the first failure ends the run with a non-zero exit and no result:
 2. build: the CUDA kernels max_agg.cu (max aggregation and its backward),
    sum_agg.cu, fused_gat.cu (GAT's fused attention, its backward and the
    reverse combine), weighted_sum.cu (the weighted combine, its reverse and
-   the pair dot) and slot_gather.cu (the per-slot gather and its backward)
+   the pair dot), slot_gather.cu (the per-slot gather and its backward) and
+   graph_attn.cu (GraphGPS's varlen attention, forward and backward)
    (nvcc, sm_90a) and the native host library (g++), all from the sources in
    this checkout, one compiler process each, in parallel; ptxas' registers
    and spills of sum_agg_kernel, max_agg_kernel, wsum_kernel,
-   gat_fwd_kernel, gat_bwd_kernel, gat_rev_kernel, pairdot_kernel and
-   slot_gather_bwd_kernel are logged, and a spill fails the run;
+   gat_fwd_kernel, gat_bwd_kernel, gat_rev_kernel, pairdot_kernel,
+   slot_gather_bwd_kernel and the gps_flash_ kernels are logged, and a
+   spill fails the run;
 3. kernel check: max_agg against its plain PyTorch version on the card at
    random tables of the node bucket 8192 (B=1, D=12/16, F=20/256, f32 and
    bf16, with and without the winner-slot store) and at edge cases; then,
@@ -49,8 +51,14 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    alignment at (4,256)), slot_gather and slot_gather_bwd at W = 1, 2, 3,
    4, 5, 12, 48 bitwise, every backward deterministic, pairdot and
    slot_gather_bwd again on a table with holes, and edge cases at D=128
-   and D=7 (f32 and bf16); and a small GAT with attention dropout must
-   train on the card;
+   and D=7 (f32 and bf16); GraphGPS's attention kernels against their
+   float32 plain versions (phase_graph_attn_check: small shapes, head
+   widths 4-32, empty graphs, and the train-gps-b6 cell's shape beside
+   torch's flash as a yardstick; padded rows +0.0; two replays of one CUDA
+   graph of forward and backward bitwise equal) and one fast GPS step's
+   kernels under the profiler (check_gps_step_kernels: no SDPA kernel, one
+   gps_flash_fwd_kernel a layer, the launch counts the trace's); and a
+   small GAT with attention dropout must train on the card;
 4. serve: one 240x240x155 synthetic brain written as NIfTI, GSpool [256]*6 and
    CNN 8->16->4 checkpoints from seeded weights in the JAX package's format,
    three requests through cli.predict_single.predict_single_mri under "exact"
@@ -130,7 +138,10 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    weighted embedding_bag's forward, its weight backward and its
    per-sample-weight backward; for slot_gather and slot_gather_bwd
    F.embedding and its backward) and byte bound; slot_gather at every width
-   of phase 3;
+   of phase 3; GraphGPS's attention at the train-gps-b6 cell's shape
+   (phase_graph_attn_timing: forward, serve variant and backward, the
+   plain versions, torch's flash at the padded shape, and the bounds of
+   FLOPs, bytes and the SFU's exp2);
 8. the pipeline, the cell pipeline-2mri: the four steps of
    scripts/run_pipeline_cuda.sh as a user runs them (each CLI's main) on
    phase 6's two brains preprocessed with cli.preprocess: cli.train_gnn -m
@@ -201,6 +212,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -336,7 +348,8 @@ def phase_build() -> None:
                                            "gat_bwd_kernel", "gat_rev_kernel",
                                            "sum_agg_kernel", "max_agg_kernel",
                                            "pairdot_kernel",
-                                           "slot_gather_bwd_kernel")):
+                                           "slot_gather_bwd_kernel",
+                                           "gps_flash_")):
                     log(f"[build] {kern}: {regs} registers, spill stores "
                         f"{stores} B, spill loads {loads} B")
                     check(stores == loads == 0, f"{kern} spills registers")
@@ -906,6 +919,267 @@ def phase_decomposed_kernel_check(dev, N=8192, n_real=TRAIN_NODES,
     log(f"[kernel] decomposed kernels against plain, largest difference "
         f"relative to the largest value: {worst}; absolute: {worst_abs}")
     return {"rel": worst, "abs": worst_abs}
+
+
+# GraphGPS's attention (ops/kernels/graph_attn.py) at the train-gps-b6 cell's
+# shape: B graphs of N padded nodes, H heads of F columns, n real nodes each
+GPS_ATTN_SHAPE = (6, 8192, 8, 12, 7000)
+GPS_ATTN_LAYERS = 4
+# bf16 kernels against their float32 plain versions on the same bf16 inputs,
+# relative to the largest value: P (and dS) are rounded to bf16 before
+# their products (2**-9 a rounding) and every output is stored in bf16
+GPS_ATTN_FWD_TOL = 1e-2
+GPS_ATTN_BWD_TOL = 3e-2
+# the row log-sum-exp, absolute: float32 sums of exp2.approx over up to
+# 7 000 keys in another order than logsumexp's (the largest seen 1.5e-5)
+GPS_ATTN_LSE_TOL = 1e-4
+# the H100 SXM's SFU: 16 exp2 a clock on each of its 132 SMs at 1.98 GHz
+SFU_EX2_PER_S = 16 * 132 * 1.98e9
+BF16_FLOPS_PER_S = 989e12
+
+
+def gps_attn_inputs(dev, B, N, H, F, counts, seed, scale=1.0):
+    """qkv [B,N,3HF] and gout [B,N,HF] bf16, normal times `scale` (a larger
+    scale peaks the softmax), and counts int32 [B] on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = (scale * torch.randn((B, N, 3 * H * F), generator=gen, device=dev)
+           ).to(torch.bfloat16)
+    gout = torch.randn((B, N, H * F), generator=gen, device=dev).to(torch.bfloat16)
+    return qkv, gout, torch.tensor(counts, dtype=torch.int32, device=dev)
+
+
+def flash_padded(qkv, counts, H):
+    """The attention as the port ran it before its own kernels: torch's flash
+    SDPA over [B, H, N, 16] bf16, head width 12 padded with a key-mask
+    channel (-1e4 on padded keys). A yardstick only; the port never calls
+    it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    B, N, C = qkv.shape
+    q, k, v = qkv.view(B, N, 3, H, C // (3 * H)).unbind(2)
+    F = q.shape[-1]
+    P = (F // 8 + 1) * 8
+    mask = (torch.arange(N, device=qkv.device)[None] < counts[:, None].long())
+    bias = ((~mask).to(q.dtype) * -1e4)[:, :, None, None].expand(B, N, H, 1)
+    rest = q.new_zeros((B, N, H, P - F - 1))
+    qp = torch.cat([q, q.new_ones((B, N, H, 1)), rest], -1).transpose(1, 2)
+    kp = torch.cat([k, bias, rest], -1).transpose(1, 2)
+    vp = torch.cat([v, q.new_zeros((B, N, H, P - F))], -1).transpose(1, 2)
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qp, kp, vp, scale=1.0 / math.sqrt(F))
+    return out.transpose(1, 2)[..., :F].reshape(B, N, H * F)
+
+
+def phase_graph_attn_check(dev) -> dict:
+    """The varlen attention kernels (ops/kernels/graph_attn.py) against their
+    float32 plain versions on the same bf16 inputs: at small shapes (N=320,
+    counts 0, 1, 7, 300 and 64, 65, 127, 129; F = 12, 4, 5, 16, 24, 32; a
+    peaked softmax at 4x the scale) and at the train-gps-b6 cell's
+    (GPS_ATTN_SHAPE, and its remainder batch with 3 empty graphs): out
+    within GPS_ATTN_FWD_TOL and dq, dk, dv each within GPS_ATTN_BWD_TOL of
+    the largest value; lse on real rows within GPS_ATTN_LSE_TOL, +inf on
+    padded ones; padded rows of out and dqkv +0.0 and everything finite;
+    the serve variant's out and a second run of each kernel bitwise the
+    first; at the cell's shape the same errors of flash_padded (the path
+    the kernels replaced) as a yardstick, and two replays of one CUDA graph
+    of forward and backward bitwise equal (no atomics). Returns the largest
+    errors."""
+    from gnn_tumor_seg_tpu_torch.ops.kernels import graph_attn as ga
+
+    worst = {}
+
+    def note(key, got, want, tol, tag, cell):
+        if not want.abs().max().item():
+            return
+        e = within(got, want)
+        for k in (key, "cell_" + key) if cell else (key,):
+            worst[k] = max(worst.get(k, 0.0), e)
+        check(tol is None or e <= tol, f"graph_attn {key} off by {e:.3g} ({tag})")
+
+    def run_case(B, N, H, F, counts, seed, scale=1.0, flash=False):
+        tag = f"B={B} N={N} H={H} F={F} counts={counts} scale={scale}"
+        cell = (B, N) == GPS_ATTN_SHAPE[:2]
+        qkv, gout, c = gps_attn_inputs(dev, B, N, H, F, counts, seed, scale)
+        out, lse = ga.graph_attn(qkv, c, H)
+        dqkv = ga.graph_attn_backward(qkv, c, out, lse, gout, H)
+        torch.cuda.synchronize()
+        want, wlse = ga.graph_attn_plain(qkv.float(), c, H)
+        wd = ga.graph_attn_backward_plain(qkv.float(), c, want, wlse, gout.float(), H)
+        note("fwd", out, want, GPS_ATTN_FWD_TOL, tag, cell)
+        parts, wparts = dqkv.view(B, N, 3, -1), wd.view(B, N, 3, -1)
+        for i, name in enumerate(("dq", "dk", "dv")):
+            note(name, parts[:, :, i], wparts[:, :, i], GPS_ATTN_BWD_TOL, tag, cell)
+        check(bool(torch.isfinite(out).all() and torch.isfinite(dqkv).all()),
+              f"graph_attn gave a non-finite value ({tag})")
+        for b, n in enumerate(counts):
+            check(not out[b, n:].view(torch.int16).any()
+                  and not dqkv[b, n:].view(torch.int16).any(),
+                  f"graph_attn padded rows of graph {b} are not +0.0 ({tag})")
+            check(bool((lse[b, :, n:] == math.inf).all()),
+                  f"graph_attn lse of padded rows is not +inf ({tag})")
+            if n:
+                e = (lse[b, :, :n] - wlse[b, :, :n]).abs().max().item()
+                worst["lse"] = max(worst.get("lse", 0.0), e)
+                check(e <= GPS_ATTN_LSE_TOL, f"graph_attn lse off by {e:.3g} ({tag})")
+        serve, _ = ga.graph_attn(qkv, c, H, save=False)
+        out2, lse2 = ga.graph_attn(qkv, c, H)
+        dqkv2 = ga.graph_attn_backward(qkv, c, out, lse, gout, H)
+        check(torch.equal(_bits(serve), _bits(out)) and torch.equal(_bits(out2), _bits(out))
+              and torch.equal(lse2, lse) and torch.equal(_bits(dqkv2), _bits(dqkv)),
+              f"graph_attn runs differ ({tag})")
+        if flash:
+            x = qkv.clone().requires_grad_(True)
+            fo = flash_padded(x, c, H)
+            mask = (torch.arange(N, device=dev)[None] < c[:, None].long())[..., None]
+            (fd,) = torch.autograd.grad(fo, x, gout * mask)
+            note("flash_fwd", fo * mask, want, None, tag, False)
+            fparts = fd.view(B, N, 3, -1)
+            for i, name in enumerate(("dq", "dk", "dv")):
+                note("flash_" + name, fparts[:, :, i], wparts[:, :, i], None, tag, False)
+        del want, wd, wlse
+        torch.cuda.empty_cache()
+        return qkv, gout, c
+
+    for F in (12, 4, 5, 16, 24, 32):
+        run_case(4, 320, 2, F, [0, 1, 7, 300], seed=F)
+    run_case(4, 320, 2, 12, [64, 65, 127, 129], seed=1)
+    run_case(4, 320, 2, 12, [300, 17, 0, 200], seed=2, scale=4.0)
+    B, N, H, F, n = GPS_ATTN_SHAPE
+    run_case(B, N, H, F, [n] * B, seed=3, flash=True)
+    qkv, gout, c = run_case(B, N, H, F, [n] * (B // 2) + [0] * (B - B // 2), seed=4)
+    # two replays of one captured forward and backward
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out, lse = ga.graph_attn(qkv, c, H)
+        ga.graph_attn_backward(qkv, c, out, lse, gout, H)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, lse = ga.graph_attn(qkv, c, H)
+        dqkv = ga.graph_attn_backward(qkv, c, out, lse, gout, H)
+    graph.replay()
+    first = dqkv.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(_bits(first), _bits(dqkv)), "graph_attn replays differ")
+    del graph
+    log("[graph_attn] kernels against the float32 plain versions (largest "
+        "relative error; lse absolute; cell_* at the cell's shape, flash_* the "
+        "replaced path there); two replays bitwise equal: " + json.dumps(worst))
+    return worst
+
+
+def check_gps_step_kernels(dev) -> dict:
+    """One "fast" GPS step of the gps-gatedgcn-4x96 widths (the hardcoded
+    GPS: 4 layers of 96, 8 heads of 12) on two graphs, 3 000 real nodes and
+    a masked copy with none, forward and backward eager under
+    torch.profiler: no kernel of torch's scaled_dot_product_attention, one
+    gps_flash_fwd_kernel a layer, every attention backward kernel named
+    gps_flash_bwd_..., the wrappers' launches what the trace shows, and
+    finite gradients."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnn_tumor_seg_tpu_torch.config import hardcoded_hyperparameters
+    from gnn_tumor_seg_tpu_torch.models.factory import init_graph_net
+    from gnn_tumor_seg_tpu_torch.ops.graph import (batch_graphs, graph_from_arrays,
+                                                   masked_copy)
+    from gnn_tumor_seg_tpu_torch.ops.kernels import graph_attn as ga
+    from gnn_tumor_seg_tpu_torch.ops.precision import precision_scope
+
+    hp = hardcoded_hyperparameters("GPS")
+    model = init_graph_net("GPS", hp).to(dev)
+    g = graph_from_arrays(*flagship_sample(np.random.default_rng(SEED), 3000),
+                          rslot=True)
+    batch = batch_graphs([g, masked_copy(g)], n_pad=4096).to(dev)
+    before = (ga.graph_attn.launches, ga.graph_attn_backward.launches)
+    with precision_scope("fast"), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model(batch, train=True).sum().backward()
+        torch.cuda.synchronize()
+    launched = (ga.graph_attn.launches - before[0],
+                ga.graph_attn_backward.launches - before[1])
+    names = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            names[e.key] = names.get(e.key, 0) + e.count
+    layers = len(hp.layer_sizes)
+    sdpa = [k for k in names if any(s in k for s in ("pytorch_flash", "fmha",
+                                                     "efficient_attention",
+                                                     "scaled_dot"))]
+    fwd = sum(c for k, c in names.items() if "flash_fwd_kernel" in k)
+    gps_fwd = sum(c for k, c in names.items() if "gps_flash_fwd_kernel" in k)
+    bwd = sum(c for k, c in names.items() if "gps_flash_bwd" in k)
+    other = [k for k in names if "gps_flash" in k and "flash_fwd_kernel" not in k
+             and "flash_bwd" not in k]
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    found = {"sdpa_kernels": sdpa, "flash_fwd_kernel": fwd,
+             "gps_flash_fwd_kernel": gps_fwd, "gps_flash_bwd": bwd,
+             "launches": launched, "layers": layers}
+    log("[graph_attn] a fast GPS step's attention kernels: " + json.dumps(found))
+    check(not sdpa, f"a fast GPS step launched SDPA kernels: {sdpa}")
+    check(fwd == gps_fwd == layers, f"expected {layers} gps_flash_fwd_kernel, "
+          f"found {fwd} flash_fwd_kernel of which {gps_fwd} the port's")
+    check(bwd == 3 * layers and not other,
+          f"expected {3 * layers} gps_flash_bwd kernels, found {bwd}; others: {other}")
+    check(launched == (fwd, bwd), f"wrapper launches {launched} differ from the "
+          f"trace's {(fwd, bwd)}")
+    check(bool(grads) and all(bool(torch.isfinite(t).all()) for t in grads),
+          "a fast GPS step gave non-finite gradients")
+    return found
+
+
+def phase_graph_attn_timing(card: str) -> dict:
+    """At the train-gps-b6 cell's shape (GPS_ATTN_SHAPE, bf16): device ms of
+    the forward (training and serve variants) and of the backward's three
+    kernels (CUDA-graph replay), the plain versions' (eager, float32), and
+    the library yardstick: flash_padded's forward and forward + backward.
+    Bounds per pass: FLOPs on real pairs (4 F forward, 10 F backward, at
+    the bf16 dense peak), bytes (each tensor read or written once) and the
+    SFU's exp2 (one a real pair forward, two backward); per GPS step,
+    GPS_ATTN_LAYERS of each."""
+    from gnn_tumor_seg_tpu_torch.ops.kernels import graph_attn as ga
+
+    dev = torch.device("cuda")
+    B, N, H, F, n = GPS_ATTN_SHAPE
+    qkv, gout, c = gps_attn_inputs(dev, B, N, H, F, [n] * B, seed=5)
+    out, lse = ga.graph_attn(qkv, c, H)
+    row = {"fwd_ms": time_device(lambda: ga.graph_attn(qkv, c, H)),
+           "fwd_serve_ms": time_device(lambda: ga.graph_attn(qkv, c, H, save=False)),
+           "bwd_ms": time_device(lambda: ga.graph_attn_backward(qkv, c, out, lse,
+                                                                gout, H))}
+    x = qkv.clone().requires_grad_(True)
+    row["library_fwd_ms"] = time_device(lambda: flash_padded(qkv, c, H))
+    row["library_fwd_bwd_ms"] = time_device(
+        lambda: torch.autograd.grad(flash_padded(x, c, H), x, gout))
+    f32 = qkv.float()
+    row["plain_fwd_ms"] = time_eager(lambda: ga.graph_attn_plain(f32, c, H),
+                                     reps=3, inner=1)
+    pout, plse = ga.graph_attn_plain(f32, c, H)
+    row["plain_bwd_ms"] = time_eager(
+        lambda: ga.graph_attn_backward_plain(f32, c, pout, plse, gout, H),
+        reps=3, inner=1)
+    del pout, plse, f32
+    pairs = B * n * n * H
+    e = qkv.element_size()
+    fwd_bytes = qkv.numel() * e + out.numel() * e + lse.numel() * 4
+    bwd_bytes = 2 * qkv.numel() * e + 2 * out.numel() * e + 3 * lse.numel() * 4
+    bounds = {"fwd": {"flops_ms": 4 * F * pairs / BF16_FLOPS_PER_S * 1e3,
+                      "bytes_ms": fwd_bytes / HBM_BYTES_PER_S * 1e3,
+                      "ex2_ms": pairs / SFU_EX2_PER_S * 1e3},
+              "bwd": {"flops_ms": 10 * F * pairs / BF16_FLOPS_PER_S * 1e3,
+                      "bytes_ms": bwd_bytes / HBM_BYTES_PER_S * 1e3,
+                      "ex2_ms": 2 * pairs / SFU_EX2_PER_S * 1e3}}
+    row["bounds"] = bounds
+    row["bound_ms"] = sum(max(b.values()) for b in bounds.values())
+    row["bound_by"] = {k: max(b, key=b.get) for k, b in bounds.items()}
+    row["step_ms"] = GPS_ATTN_LAYERS * (row["fwd_ms"] + row["bwd_ms"])
+    row["library_step_ms"] = GPS_ATTN_LAYERS * row["library_fwd_bwd_ms"]
+    row["step_bound_ms"] = GPS_ATTN_LAYERS * row["bound_ms"]
+    row["visited_pair_share"] = B * ga.visited_pairs(n) * H / pairs
+    log(f"[graph_attn] {card}: " + json.dumps(row))
+    return row
 
 
 def check_gat_dropout_trains(dev) -> None:
@@ -1753,6 +2027,16 @@ def write_train_data(root: str, n_samples: int = TRAIN_BATCH,
 NO_LAUNCHES = {k: 0 for k in ("max_agg", "max_agg_bwd", "sum_agg", "gat_fwd",
                                "gat_bwd", "gat_rev", "wsum", "wsum_bwd",
                                "pairdot", "slot_gather", "slot_gather_bwd")}
+
+
+def rank_launches(counts: dict, label: str) -> dict:
+    """A rank's launches from parallel/collectives.launches_by_rank (every
+    wrapper of ops/kernels.launch_counts) restricted to NO_LAUNCHES' kernels,
+    after checking that the others launched nothing: GraphGPS's attention
+    kernels, which no distributed path runs."""
+    other = {k: v for k, v in counts.items() if k not in NO_LAUNCHES}
+    check(not any(other.values()), f"{label}: unexpected launches {other}")
+    return {k: counts[k] for k in NO_LAUNCHES}
 
 
 def _reset_counts():
@@ -3061,6 +3345,7 @@ def check_dist_run(data_dir, out_dir, run, model_type, mesh, n_epochs, card,
               f"{run}: launch counts of {len(e['launches_by_rank'])} ranks")
         want = {**NO_LAUNCHES, **{k: v * e["steps"] for k, v in per_step.items()}}
         for r, counts in enumerate(e["launches_by_rank"]):
+            counts = rank_launches(counts, f"{run} rank {r}")
             check(counts == want, f"{run} rank {r}: launches {counts}, "
                                   f"expected {want}")
             for k, v in counts.items():
@@ -3651,6 +3936,7 @@ def phase_train_tp(data_dir: str, tmp: str, card: str, device="cuda") -> dict:
                     for k, v in dist_step_launches(model_type).items()}
         want = {**NO_LAUNCHES, **per_step}
         for r, counts in enumerate(json.loads(str(ranks[0][f"{model_type}/launches"]))):
+            counts = rank_launches(counts, f"TP {model_type} rank {r}")
             check(counts == want, f"TP {model_type} rank {r}: launches {counts}, "
                                   f"expected {want}")
             for k, v in counts.items():
@@ -3847,6 +4133,8 @@ def run_phases(stack: contextlib.ExitStack) -> int:
     train_worst = phase_train_kernel_check(dev)
     gat_worst = phase_gat_kernel_check(dev)
     dec_worst = phase_decomposed_kernel_check(dev)
+    attn_worst = phase_graph_attn_check(dev)
+    attn_step = check_gps_step_kernels(dev)
     check_gat_dropout_trains(dev)
     done("phase 3")
     serve_tmp = stack.enter_context(
@@ -3878,6 +4166,7 @@ def run_phases(stack: contextlib.ExitStack) -> int:
         wstep = time_train_steps(wdataset, card, "GSmean")
         drop_step = time_train_steps(dataset, card, "GAT", attn_drop=GAT_ATTN_DROP)
         dtime = phase_decomposed_timing(dataset, card)
+        atime = phase_graph_attn_timing(card)
         # last, so that the cells timed before it run as they did without it
         mean_step = time_train_steps(dataset, card, "GSmean")
         done("phase 7")
@@ -4125,6 +4414,25 @@ def run_phases(stack: contextlib.ExitStack) -> int:
         "fast_bf16": dec_per_step(dtime, drop_step_parts("slot_gather_bwd"),
                                   "bfloat16"),
     }]
+    kernels.append({
+        "name": "graph_attn",
+        "route": "cuda",
+        "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/graph_attn.cu",
+        "replaces": ("none: GraphGPS has no JAX counterpart (torch's flash "
+                     "scaled_dot_product_attention before)"),
+        "launches_per_fast_gps_step": {
+            k: attn_step[k] for k in ("gps_flash_fwd_kernel", "gps_flash_bwd")},
+        "max_rel_err": attn_worst,
+        "ms": atime["step_ms"],
+        "plain_ms": GPS_ATTN_LAYERS * (atime["plain_fwd_ms"] + atime["plain_bwd_ms"]),
+        "bound_ms": atime["step_bound_ms"],
+        "bound_by": atime["bound_by"],
+        "library_ms": atime["library_step_ms"],
+        "per": (f"one train-gps-b6 step: {GPS_ATTN_LAYERS} forwards and backwards "
+                f"at (B, N, H, F, n) = {GPS_ATTN_SHAPE}, bf16; library: "
+                "flash_padded (torch's flash SDPA at head width 16, every padded pair)"),
+        "per_pass": atime,
+    })
     check(serve["gat"]["launches"] > 0, "gat_fwd was never launched on the serve path")
     for k in ("max_agg", "gat_fwd"):
         check(deviceprep["launches"][k] > 0,

@@ -86,20 +86,21 @@ def check_launch(lib: ctypes.CDLL, rc: int, name: str) -> None:
 
 
 def build_all(cuda: bool = True) -> dict[str, tuple[str, float]]:
-    """Build the native host library and, with `cuda`, the five kernel
+    """Build the native host library and, with `cuda`, the six kernel
     libraries, one compiler process each, all started together. Returns
     {library: (compiler output, seconds)}; raises on the first failure."""
     import concurrent.futures
     import time
 
     from .data import native
-    from .ops.kernels import fused_gat, max_agg, slot_gather, sum_agg, weighted_sum
+    from .ops.kernels import (fused_gat, graph_attn, max_agg, slot_gather, sum_agg,
+                              weighted_sum)
 
     jobs = {"gts_native.cc (g++)": native.build}
     if cuda:
         jobs.update({f"{mod.__name__.rsplit('.', 1)[1]}.cu (nvcc sm_90a)": mod.build
                      for mod in (max_agg, sum_agg, fused_gat, weighted_sum,
-                                 slot_gather)})
+                                 slot_gather, graph_attn)})
 
     def timed(fn):
         t = time.perf_counter()

@@ -52,16 +52,20 @@ so that g = 0 is torch's initial scale.
 The message passing reads each slot's neighbour rows through the slot
 gather of ops/kernels/slot_gather.py: B h_j and E h_j (a gather each, so
 that both edge tensors are contiguous; the gradient through the graph's
-`rslot`), and the input features for the edge encoder. The attention is torch's scaled_dot_product_attention over
-[B, H, N, P], the head width padded from W / H to P, the next multiple of
-8 above it (12 -> 16; the flash backend takes a multiple of 8). One pad
-channel masks the padded keys: q holds 1 there, k 0 on a real node and
--1e4 on a padded one, so a padded key's score sits thousands below every
-real one and its weight underflows to exactly 0; the other pad channels
-are 0, so the product over real nodes is exact. Without a mask tensor the
-flash backend runs bfloat16 ("fast") and the memory-efficient one float32
-("exact"); both run inside the training step's CUDA graph. Padded query
-rows compute values that the next BatchNorm zeroes.
+`rslot`), and the input features for the edge encoder.
+
+The attention reads the projection qkv [B, N, 3W] (q | k | v, heads of
+W / H columns) and gives att [B, N, W], the layout `@ w_o` takes. In "fast"
+(bfloat16) it is the port's varlen kernels (ops/kernels/graph_attn.py; the
+plain version on a CPU tensor): each graph's real-node count, a device
+int32 [B] that the forward computes once from node_mask (whose real rows are
+a prefix), bounds the key and query loops, padded rows of att and of its
+gradient are 0, and a graph with no real node gives zeros; the step's CUDA
+graph replays them for any batch. In "exact" (float32) it is torch's
+scaled_dot_product_attention on its memory-efficient backend over [B, H, N,
+P], the head width padded to P, the next multiple of 8 above W / H, with one
+channel masking the padded keys (`_sdpa_attention`); its padded query rows
+carry values that the next BatchNorm zeroes.
 
 Under precision mode "fast" activations and the per-use parameter casts
 are bf16, the master parameters float32, the BatchNorm arithmetic float32
@@ -70,7 +74,8 @@ and the logits float32; "exact" is float32 throughout.
 Spans (spans.py) `gps.local`, `gps.attn` and `gps.ffn` time each layer's
 three blocks into `host_s` (eager steps; a captured step records them
 once) and under a profiler open their record_function copies.
-`step_counts` gives the trainer the step's attention pairs.
+`step_counts` gives the trainer the step's attention pairs: those the
+varlen forward visits in "fast", every padded pair in "exact".
 """
 
 from __future__ import annotations
@@ -84,7 +89,7 @@ from torch import nn
 
 from .. import spans
 from ..ops.graph import GraphBatch
-from ..ops.kernels import slot_gather
+from ..ops.kernels import graph_attn, slot_gather
 from ..ops.precision import compute_dtype
 from .sage import _dropout
 
@@ -164,41 +169,50 @@ class MaskedBatchNorm(nn.Module):
         return y if m is None else y * m
 
 
-def padded_head_width(head_width: int) -> int:
-    """The attention's head width: the next multiple of 8 above
-    head_width, leaving at least one channel for the key mask."""
-    return (head_width // 8 + 1) * 8
-
-
 def _sdpa_backends(device: torch.device):
-    """The backends the attention may take: on the card flash (bf16) and
-    memory-efficient (float32), never the math path that materializes
-    every score; on the CPU torch's choice."""
+    """The backend the SDPA path may take: on the card the memory-efficient
+    one (float32), never the math path that materializes every score; on
+    the CPU torch's choice."""
     if device.type != "cuda":
         return contextlib.nullcontext()
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    return sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION])
+    return sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION])
 
 
-def graph_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+def _sdpa_attention(qkv: torch.Tensor, heads: int,
                     node_mask: torch.Tensor) -> torch.Tensor:
-    """Multi-head attention of each graph's nodes over its real nodes: q, k,
-    v [B, N, H, F] -> [B, N, H, F] (module doc: the padded head width, the
-    key-mask channel). Padded query rows are left as they come out."""
-    B, N, H, F = q.shape
-    P = padded_head_width(F)
+    """The "exact" attention (module doc): torch's scaled_dot_product_attention
+    with the key-mask channel. q holds 1 there, k 0 on a real node and -1e4
+    on a padded one, so a padded key's score sits thousands below every real
+    one and its weight underflows to exactly 0; the other pad channels are
+    0, so the product over real nodes is exact."""
+    B, N, C = qkv.shape
+    q, k, v = qkv.view(B, N, 3, heads, C // (3 * heads)).unbind(2)
+    F = q.shape[-1]
+    P = (F // 8 + 1) * 8        # a multiple of 8 with a channel for the mask
     new = q.new_zeros
-    one = q.new_ones((B, N, H, 1))
+    one = q.new_ones((B, N, heads, 1))
     key_bias = ((1.0 - node_mask) * _PAD_KEY).to(q.dtype)[:, :, None, None]
-    rest = new((B, N, H, P - F - 1))
+    rest = new((B, N, heads, P - F - 1))
     qp = torch.cat([q, one, rest], -1).transpose(1, 2)
-    kp = torch.cat([k, key_bias.expand(B, N, H, 1), rest], -1).transpose(1, 2)
-    vp = torch.cat([v, new((B, N, H, P - F))], -1).transpose(1, 2)
+    kp = torch.cat([k, key_bias.expand(B, N, heads, 1), rest], -1).transpose(1, 2)
+    vp = torch.cat([v, new((B, N, heads, P - F))], -1).transpose(1, 2)
     with _sdpa_backends(q.device):
         out = torch.nn.functional.scaled_dot_product_attention(
             qp, kp, vp, scale=1.0 / math.sqrt(F))
-    return out.transpose(1, 2)[..., :F]
+    return out.transpose(1, 2)[..., :F].reshape(B, N, heads * F)
+
+
+def graph_attention(qkv: torch.Tensor, heads: int, node_mask: torch.Tensor,
+                    n_real: torch.Tensor) -> torch.Tensor:
+    """Multi-head attention of each graph's nodes over its real nodes: qkv
+    [B, N, 3W] -> att [B, N, W] (module doc). bfloat16 takes the varlen
+    kernels, bounded by n_real (int32 [B], each graph's real nodes); float32
+    the SDPA path, bounded by node_mask."""
+    if qkv.dtype == torch.bfloat16:
+        return graph_attn.attention(qkv, n_real, heads)
+    return _sdpa_attention(qkv, heads, node_mask)
 
 
 class GPSLayer(nn.Module):
@@ -243,7 +257,7 @@ class GPSLayer(nn.Module):
         cd = h.dtype
         W = self.width
         nmask, emask = graph.node_mask, graph.nbr_mask
-        n_nodes, n_edges, pad_slots = counts
+        n_nodes, n_edges, pad_slots, n_real = counts
         drop = dropout if train else 0.0
 
         def p(name):
@@ -276,11 +290,10 @@ class GPSLayer(nn.Module):
                 e = None
             h_local = self.bn_local(h_local, nmask, n_nodes, train)
         with spans.span("gps.attn", self.host_s, "attn"):
-            B, N, _ = h.shape
             b_qkv = torch.cat([p("b_q"), p("b_k"), p("b_v")])
-            qkv = (h @ p("w_qkv") + b_qkv).view(B, N, 3, self.heads, -1)
-            att = graph_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], nmask)
-            att = att.reshape(B, N, W) @ p("w_o") + p("b_o")
+            qkv = h @ p("w_qkv") + b_qkv
+            att = (graph_attention(qkv, self.heads, nmask, n_real) @ p("w_o")
+                   + p("b_o"))
             h_attn = self.bn_attn(h + _dropout(att, drop, generator), nmask,
                                   n_nodes, train)
         with spans.span("gps.ffn", self.host_s, "ffn"):
@@ -378,11 +391,17 @@ class GPS(nn.Module):
 
     def step_counts(self, n_nodes: Sequence[int], n_pad: int) -> dict:
         """Counters of one step over graphs of `n_nodes` real nodes padded
-        to n_pad: the query-key pairs the attention computes (attn_pairs,
-        padding included) and those between real nodes (attn_real_pairs),
-        over every head of every layer."""
+        to n_pad, under the current precision: the query-key pairs the
+        attention computes (attn_pairs: in "fast" those of the varlen
+        forward's tiles, graph_attn.visited_pairs; in "exact" n_pad^2 a
+        graph) and those between real nodes (attn_real_pairs), over every
+        head of every layer."""
         per = self.heads * self.num_layers
-        return {"attn_pairs": per * len(n_nodes) * n_pad * n_pad,
+        if compute_dtype() == torch.bfloat16:
+            pairs = sum(graph_attn.visited_pairs(int(n)) for n in n_nodes)
+        else:
+            pairs = len(n_nodes) * n_pad * n_pad
+        return {"attn_pairs": per * pairs,
                 "attn_real_pairs": per * sum(int(n) * int(n) for n in n_nodes)}
 
     def forward(self, graph: GraphBatch, h: torch.Tensor | None = None,
@@ -394,9 +413,11 @@ class GPS(nn.Module):
         cd = compute_dtype()
         feats = graph.feats if h is None else h
         nmask, emask = graph.node_mask, graph.nbr_mask
-        # real nodes, real slots, and each row's padded slots [B, N, 1]
+        # real nodes, real slots, each row's padded slots [B, N, 1], and
+        # each graph's real nodes (int32 [B], the varlen attention's bound)
         counts = (nmask.sum(), emask.sum(),
-                  (emask.shape[-1] - emask.sum(-1, keepdim=True)))
+                  (emask.shape[-1] - emask.sum(-1, keepdim=True)),
+                  nmask.sum(1).to(torch.int32))
         x_j = slot_gather.slot_gather(feats.contiguous(), graph.nbr, emask)
         enc = self.enc
         h = feats.to(cd) @ enc.w_node.to(cd) + enc.b_node.to(cd)

@@ -39,6 +39,7 @@ from gnn_tumor_seg_tpu_torch.models.factory import init_graph_net
 from gnn_tumor_seg_tpu_torch.models.gps import (GPS, MaskedBatchNorm,
                                                 graph_attention)
 from gnn_tumor_seg_tpu_torch.ops.graph import batch_graphs, graph_from_arrays
+from gnn_tumor_seg_tpu_torch.ops.kernels import graph_attn
 from gnn_tumor_seg_tpu_torch.ops.precision import precision_scope
 from gnn_tumor_seg_tpu_torch.train import checkpoint
 from gnn_tumor_seg_tpu_torch.train.gnn_trainer import GNNTrainer
@@ -158,17 +159,23 @@ def test_masked_batch_norm_is_batch_norm_over_real_rows():
 
 
 def test_padded_keys_get_no_weight():
-    """The key-mask channel: attention over a padded graph equals attention
-    over its real nodes alone."""
+    """Attention over a padded graph equals attention over its real nodes
+    alone: the SDPA path's key-mask channel (float32) and the varlen
+    kernels' plain version (which gives 0 on padded rows)."""
     gen = torch.Generator().manual_seed(9)
     q, k, v = (torch.randn((2, 12, 3, 12), generator=gen) for _ in range(3))
+    qkv = torch.cat([t.reshape(2, 12, 36) for t in (q, k, v)], -1)
     mask = torch.zeros(2, 12)
     mask[0, :7], mask[1, :12] = 1, 1
-    out = graph_attention(q, k, v, mask)
+    n_real = mask.sum(1).to(torch.int32)
+    sdpa = graph_attention(qkv, 3, mask, n_real).view(2, 12, 3, 12)
+    plain = graph_attn.graph_attn_plain(qkv, n_real, 3)[0].view(2, 12, 3, 12)
     for b, n in ((0, 7), (1, 12)):
         s = torch.einsum("ihf,jhf->hij", q[b, :n], k[b, :n]) / math.sqrt(12)
         want = torch.einsum("hij,jhf->ihf", torch.softmax(s, -1), v[b, :n])
-        assert torch.allclose(out[b, :n], want, atol=1e-6)
+        assert torch.allclose(sdpa[b, :n], want, atol=1e-6)
+        assert torch.allclose(plain[b, :n], want, atol=1e-6)
+    assert torch.equal(plain[0, 7:], torch.zeros_like(plain[0, 7:]))
 
 
 class _Graphs:
@@ -225,11 +232,11 @@ def test_three_adamw_steps_match_the_reference(drawn):
     assert ref_train.leaf_gap(moved, want, ref_train.moved_leaves(r_grad)) < 1e-3
 
 
-def _trained(drawn, epochs=2):
+def _trained(drawn, epochs=2, precision="exact"):
     ref, specs, w, coo = drawn
     graphs = [graph_from_arrays(f, s, d, y, rslot=True) for f, s, d, y in coo]
     trainer = GNNTrainer("GPS", _hp(batch_size=2), _Graphs(graphs), seed=1,
-                         precision="exact", device="cpu")
+                         precision=precision, device="cpu")
     weights.load_into(trainer.model.jax_parameters(), w, specs)
     for _ in range(epochs):
         trainer.run_epoch()
@@ -237,12 +244,26 @@ def _trained(drawn, epochs=2):
 
 
 def test_counters_count_the_steps_attention_pairs(drawn):
-    """attn_pairs and attn_real_pairs of an epoch: two steps, the second a
-    remainder batch whose masked copy holds no real node."""
+    """attn_pairs and attn_real_pairs of a "fast" epoch: two steps, the
+    second a remainder batch whose masked copy holds no real node. The
+    varlen forward visits the pairs of the 128 x 32 tiles that hold a real
+    row (128 x 64 for the graphs of 50 and 64 nodes, 128 x 96 for the one of
+    80) and none of the empty graph."""
+    trainer, graphs = _trained(drawn, epochs=1, precision="fast")
+    stats = trainer.last_epoch_stats
+    per = 2 * 2                              # heads x layers
+    assert stats["steps"] == 2
+    assert stats["attn_pairs"] == per * (128 * 64 + 128 * 96 + 128 * 64)
+    assert stats["attn_real_pairs"] == per * sum(n * n for n in SIZES)
+
+
+def test_counters_count_padded_pairs_in_exact(drawn):
+    """In "exact" the SDPA path computes every pair of the padded graphs,
+    the masked copy's too."""
     trainer, graphs = _trained(drawn, epochs=1)
     stats = trainer.last_epoch_stats
     n_pad = trainer._shape_budget[0]
-    per = 2 * 2                              # heads x layers
+    per = 2 * 2
     assert stats["steps"] == 2
     assert stats["attn_pairs"] == per * 4 * n_pad ** 2
     assert stats["attn_real_pairs"] == per * sum(n * n for n in SIZES)
