@@ -72,9 +72,9 @@ def resolve_slic_fn(impl: str, device="cuda"):
 
 
 def load_gnn_from_checkpoint(weight_file: str, device="cuda"):
-    """Rebuild the graph net from its embedded config (and a GPS's running
-    statistics). Returns (model, hp, forward); forward(graph) -> float32
-    node logits [B, N, C] on the model's device."""
+    """Rebuild the graph net from its embedded config (and its buffers,
+    where the checkpoint has them). Returns (model, hp, forward);
+    forward(graph) -> float32 node logits [B, N, C] on the model's device."""
     dev = resolve_device(device)
     leaves, model_type, hp, manifest = load_checkpoint(weight_file)
     model = gnn_from_leaves(leaves, model_type, hp, device=dev,

@@ -14,6 +14,12 @@ GatConv.keys); for the CNN conv0/b, conv0/w, conv1/b, conv1/w.
 train/checkpoint.py stores leaves in that order, so one checkpoint file
 loads in both packages. GPS (models/gps.py) has no JAX counterpart: its
 checkpoints hold the port's own leaf order and nothing here converts it.
+
+Every graph model gives its leaves in that order through `jax_parameters()`,
+and load_leaves is the one path by which flat leaves enter one: a
+checkpoint's, a model's gathered whole over tensor parallelism, and the JAX
+per-layer lists flattened (load_gnn_params). It lives here, below
+train/checkpoint.py, because both modules copy through it.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ from .models.sage import LAYER_KEYS, GraphSage
 
 __all__ = ["gnn_params_from_jax", "gnn_params_to_jax", "gat_params_from_jax",
            "gat_params_to_jax", "cnn_params_from_jax", "cnn_params_to_jax",
-           "aggregator_of", "load_gnn_params", "CNN_KEYS"]
+           "aggregator_of", "load_gnn_params", "load_leaves", "parameter_names",
+           "CNN_KEYS"]
 CNN_KEYS = (("conv0", "b"), ("conv0", "w"), ("conv1", "b"), ("conv1", "w"))
 _CNN_ATTRS = {("conv0", "w"): "w0", ("conv0", "b"): "b0",
               ("conv1", "w"): "w1", ("conv1", "b"): "b1"}
@@ -35,13 +42,49 @@ _DHWIO_TO_OIDHW = (4, 3, 0, 1, 2)
 _OIDHW_TO_DHWIO = (2, 3, 4, 1, 0)
 
 
-def _copy_into(param: torch.nn.Parameter, value, name: str) -> None:
+def _copy_into(target: torch.Tensor, value, name: str) -> None:
     value = torch.tensor(np.asarray(value, np.float32))
-    if tuple(value.shape) != tuple(param.shape):
+    if tuple(value.shape) != tuple(target.shape):
         raise ValueError(f"{name}: shape {tuple(value.shape)} does not match "
-                         f"the model's {tuple(param.shape)}")
+                         f"the model's {tuple(target.shape)}")
     with torch.no_grad():
-        param.copy_(value)
+        target.copy_(value)
+
+
+def parameter_names(model) -> list[str]:
+    """The names (as named_parameters gives them) of `model.jax_parameters()`,
+    in that order."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return [names[id(p)] for p in model.jax_parameters()]
+
+
+def _check_count(prefix: str, leaves, names: list[str], model) -> None:
+    if len(leaves) != len(names):
+        k = min(len(leaves), len(names))
+        which = (f"the model's {names[k]} has no leaf" if k < len(names)
+                 else "the model has nothing to hold it")
+        raise ValueError(f"{len(leaves)} leaves for the {len(names)} of a "
+                         f"{type(model).__name__}: {prefix}/{k}: {which}")
+
+
+def load_leaves(model, leaves, buffers=None, shard=None) -> None:
+    """Copy `leaves` into `model.jax_parameters()` and, when given, `buffers`
+    into `model.buffers()` (a GPS's running statistics), in order and in
+    place (an optimizer holding the parameters keeps them). The counts and
+    every shape are checked; an error names the leaf by its checkpoint key
+    (p/{i}, b/{i}) and the model's name for it. `shard(i, leaf)`, when given,
+    maps parameter i's whole leaf to the part the model holds (tensor
+    parallelism)."""
+    params, names = model.jax_parameters(), parameter_names(model)
+    _check_count("p", leaves, names, model)
+    for i, (p, name, leaf) in enumerate(zip(params, names, leaves)):
+        _copy_into(p, leaf if shard is None else shard(i, leaf),
+                   f"p/{i} ({name})")
+    if buffers is not None:
+        own = list(model.named_buffers())
+        _check_count("b", buffers, [name for name, _ in own], model)
+        for i, ((name, b), leaf) in enumerate(zip(own, buffers)):
+            _copy_into(b, leaf, f"b/{i} ({name})")
 
 
 def aggregator_of(params: list[dict]) -> str:
@@ -77,13 +120,11 @@ def load_gnn_params(model: GraphSage | GAT, params: list[dict]) -> None:
         raise ValueError(f"{len(params)} layers of parameters for a model of "
                          f"{model.num_layers}")
     for i, (layer, lp) in enumerate(zip(model.layers, params)):
-        keys = (layer.keys if isinstance(model, GAT)
-                else LAYER_KEYS[model.aggregator])
-        if set(lp) != set(keys):
+        if set(lp) != set(layer.keys):
             raise ValueError(f"layer {i}: keys {sorted(lp)} are not the "
-                             f"model's layer keys {list(keys)}")
-        for key in keys:
-            _copy_into(getattr(layer, key), lp[key], f"layer {i} {key}")
+                             f"model's layer keys {list(layer.keys)}")
+    load_leaves(model, [lp[k] for layer, lp in zip(model.layers, params)
+                        for k in layer.keys])
 
 
 def gnn_params_to_jax(model: GraphSage) -> list[dict]:

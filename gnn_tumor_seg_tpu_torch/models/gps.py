@@ -45,7 +45,8 @@ reads: each layer masks ê (the gate's and BN_e's input) once, and the
 edge encoder's output is masked. Training (train=True) normalizes by the batch's
 statistics and updates the running ones (momentum 0.1, the unbiased
 variance, as torch.nn.BatchNorm1d); evaluation and serving read the
-running ones, which the checkpoint carries as buffers (`buffer_leaves`).
+running ones, torch buffers registered in leaf order, which the checkpoint
+carries as its buffer leaves.
 The scale is stored as its offset from 1 (the parameter g, scale 1 + g),
 so that g = 0 is torch's initial scale.
 
@@ -377,17 +378,6 @@ class GPS(nn.Module):
         """named_leaves' parameters (GPS has no JAX counterpart; the name is
         the trainer's and checkpoint's protocol)."""
         return [p for _, p in self.named_leaves()]
-
-    def batch_norms(self) -> list[MaskedBatchNorm]:
-        """Every BatchNorm, in leaf order."""
-        return [getattr(m, k) for _, m in self._leaf_modules() for k in m.keys
-                if isinstance(getattr(m, k), MaskedBatchNorm)]
-
-    def buffer_leaves(self) -> list[torch.Tensor]:
-        """The running statistics (mean, var of each BatchNorm in leaf
-        order): the checkpoint's buffer leaves."""
-        return [t for bn in self.batch_norms()
-                for t in (bn.running_mean, bn.running_var)]
 
     def step_counts(self, n_nodes: Sequence[int], n_pad: int) -> dict:
         """Counters of one step over graphs of `n_nodes` real nodes padded

@@ -11,17 +11,20 @@
 The default is "exact", applied at import. set_precision_mode sets the
 process-wide mode and its flags; precision_scope overrides both for a block
 and restores both afterwards. Neither is thread-safe: the mode is a process
-global, set on one thread.
+global, set on one thread. Training runs in "fast" unless the trainer is
+given a mode or GTS_PALLAS_PRECISION names one, as for the JAX package
+(training_precision).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 
 __all__ = ["get_precision_mode", "set_precision_mode", "precision_scope",
-           "fast_precision", "compute_dtype"]
+           "fast_precision", "compute_dtype", "training_precision"]
 
 _MODES = ("exact", "fast")
 _MODE = "exact"
@@ -70,6 +73,15 @@ def precision_scope(mode: str):
     finally:
         _MODE = prev
         _set_tf32_flags(*flags)
+
+
+def training_precision(mode: str | None = None) -> str:
+    """A trainer's mode: `mode`, or GTS_PALLAS_PRECISION's when None
+    ("fast" when unset); ValueError for any other than the two modes."""
+    if mode is None:
+        mode = os.environ.get("GTS_PALLAS_PRECISION", "fast")
+    _validate(mode)
+    return mode
 
 
 def fast_precision() -> bool:

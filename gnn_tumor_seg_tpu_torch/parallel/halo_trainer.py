@@ -19,7 +19,6 @@ mask on every rank (:474-476).
 
 from __future__ import annotations
 
-import os
 import time
 from typing import Sequence
 
@@ -30,7 +29,7 @@ from .. import evaluation, spans
 from ..config import HyperParams
 from ..data.image import project_nodes_to_img
 from ..models.factory import SAGE_AGGREGATORS, init_graph_net
-from ..ops.precision import precision_scope
+from ..ops.precision import precision_scope, training_precision
 from ..train.gnn_trainer import restore_training_state
 from ..train.losses import weighted_cross_entropy
 from ..train.optim import epoch_lr, make_optimizer, opt_state_leaves, set_lr
@@ -84,11 +83,7 @@ class HaloTrainer:
         self.mesh = mesh
         self.variant = variant
         self.halo_width = halo_width
-        if precision is None:
-            precision = os.environ.get("GTS_PALLAS_PRECISION", "fast")
-        if precision not in ("exact", "fast"):
-            raise ValueError(f"precision must be exact or fast, got {precision!r}")
-        self.precision = precision
+        self.precision = training_precision(precision)
         self._seed = seed
         self.model = init_halo_net(model_type, hp, mesh, variant, halo_width,
                                    torch.Generator().manual_seed(seed))

@@ -58,7 +58,7 @@ from ..config import HyperParams
 from ..convert import CNN_KEYS
 from ..data.cache import LRUBytesCache
 from ..models.refine_cnn import CnnRefinementNet
-from ..ops.precision import precision_scope
+from ..ops.precision import precision_scope, training_precision
 from ..runtime import resolve_device
 from .checkpoint import (cnn_from_leaves, load_checkpoint, load_opt_state,
                          save_checkpoint)
@@ -71,7 +71,6 @@ __all__ = ["CNNTrainer", "PreparedSample", "combine_logits_and_image",
 
 _CROP_BUCKET = 16
 DEFAULT_CROP_FLOOR = (128, 128, 128)
-_PRECISIONS = ("exact", "fast")
 # conv weights: the port's OIDHW against the JAX package's DHWIO
 _OIDHW_TO_DHWIO = (2, 3, 4, 1, 0)
 _DHWIO_TO_OIDHW = (4, 3, 0, 1, 2)
@@ -157,12 +156,7 @@ class CNNTrainer:
         self.device = resolve_device(device)
         self.crop_floor = (default_crop_floor() if crop_floor == "default"
                            else crop_floor)
-        if precision is None:
-            precision = os.environ.get("GTS_PALLAS_PRECISION", "fast")
-        if precision not in _PRECISIONS:
-            raise ValueError(f"precision must be one of {_PRECISIONS}, got "
-                             f"{precision!r}")
-        self.precision = precision
+        self.precision = training_precision(precision)
         self.hp = hp
         self.net = CnnRefinementNet(hp.in_feats, hp.out_classes, hp.layer_sizes,
                                     torch.Generator().manual_seed(seed))

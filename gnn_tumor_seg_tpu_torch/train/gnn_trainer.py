@@ -64,23 +64,22 @@ import torch
 
 from .. import evaluation, spans
 from ..config import HyperParams
-from ..convert import load_gnn_params
+from ..convert import load_gnn_params, load_leaves
 from ..data.cache import LRUBytesCache, device_cache_bytes, nbytes_of
 from ..data.image import project_nodes_to_img
 from ..models.factory import init_graph_net
 from ..ops.graph import (DEGREE_BUCKETS, NODE_BUCKETS, GraphBatch, batch_graphs,
                          batch_spec, bucket_size, masked_copy)
-from ..ops.precision import get_precision_mode, precision_scope
+from ..ops.precision import (get_precision_mode, precision_scope,
+                             training_precision)
 from ..runtime import resolve_device
-from .checkpoint import (load_buffer_leaves, load_checkpoint, load_opt_state,
-                         save_checkpoint)
+from .checkpoint import load_checkpoint, load_opt_state, save_checkpoint
 from .losses import weighted_cross_entropy, weighted_cross_entropy_per_graph
 from .optim import (epoch_lr, load_opt_state_leaves, make_optimizer,
                     opt_state_leaves, set_lr)
 
 __all__ = ["GNNTrainer", "restore_training_state"]
 
-_PRECISIONS = ("exact", "fast")
 # the host phases of a training step, and the epoch's synchronize
 HOST_PHASES = ("batch", "forward", "backward", "optim", "replay", "epoch_sync")
 # the most batch keys a trainer keeps a captured step for
@@ -119,10 +118,9 @@ class _CapturedStep:
 
 def restore_training_state(path: str, model, optimizer, model_type: str,
                            shard=None) -> int | None:
-    """Load a checkpoint's parameters into `model` (in place, JAX flatten
-    order; a GPS's own order, and its running statistics where the
-    checkpoint has them) and, when it has them, its optimizer state into
-    `optimizer`.
+    """Load a checkpoint's parameters (and buffers, where it has them) into
+    `model` in place (convert.load_leaves) and, when it has them, its
+    optimizer state into `optimizer`.
     `shard(i, leaf)`, when given, maps parameter i's whole leaf (and its two
     moments) to the part the model holds (tensor parallelism). Returns the
     checkpoint's epoch counter, or None."""
@@ -130,24 +128,12 @@ def restore_training_state(path: str, model, optimizer, model_type: str,
     if ckpt_type != model_type:
         raise ValueError(f"checkpoint holds a {ckpt_type}, the trainer a "
                          f"{model_type}")
-    params = model.jax_parameters()
-    if len(leaves) != len(params):
-        raise ValueError(f"checkpoint has {len(leaves)} parameter leaves, "
-                         f"the model {len(params)}")
-    n = len(params)
     if shard is None:
         shard = lambda i, leaf: leaf  # noqa: E731
-    leaves = [shard(i, leaf) for i, leaf in enumerate(leaves)]
-    with torch.no_grad():
-        for p, leaf in zip(params, leaves):
-            if tuple(np.shape(leaf)) != tuple(p.shape):
-                raise ValueError(f"checkpoint leaf {np.shape(leaf)} does "
-                                 f"not match a parameter of {tuple(p.shape)}")
-            p.copy_(torch.tensor(np.asarray(leaf, np.float32)))
-    if "buffers" in manifest:
-        load_buffer_leaves(model, manifest["buffers"])
+    load_leaves(model, leaves, manifest.get("buffers"), shard)
     opt = load_opt_state(path)
     if opt is not None:
+        n = len(leaves)
         head, moments = opt[:len(opt) - 2 * n], opt[len(opt) - 2 * n:]
         load_opt_state_leaves(optimizer, head + [
             shard(i % n, m) for i, m in enumerate(moments)])
@@ -162,12 +148,7 @@ class GNNTrainer:
         self.device = resolve_device(device)
         self.model_type = model_type
         self.hp = hp
-        if precision is None:
-            precision = os.environ.get("GTS_PALLAS_PRECISION", "fast")
-        if precision not in _PRECISIONS:
-            raise ValueError(f"precision must be one of {_PRECISIONS}, got "
-                             f"{precision!r}")
-        self.precision = precision
+        self.precision = training_precision(precision)
         self._seed = seed
         self.model = init_graph_net(model_type, hp,
                                     torch.Generator().manual_seed(seed))

@@ -283,28 +283,6 @@ def test_spans_time_each_block(drawn):
         assert names.count(name) == 2 * 2, name      # layers x steps
 
 
-def test_checkpoint_round_trip_keeps_batch_norm_statistics(drawn, tmp_path):
-    trainer, graphs = _trained(drawn)
-    model = trainer.model
-    assert not torch.equal(model.buffer_leaves()[0], torch.zeros(16))
-    trainer.save_weights(f"{tmp_path}/", "gps")
-    path = f"{tmp_path}/gps.ckpt"
-    leaves, model_type, hp, manifest = checkpoint.load_checkpoint(path)
-    assert model_type == "GPS" and hp.gps_heads == 2 and hp.gps_post_layers == 3
-    assert manifest["n_buffers"] == 2 * len(model.batch_norms())
-    loaded = checkpoint.gnn_from_leaves(leaves, "GPS", hp,
-                                        buffers=manifest["buffers"])
-    restored = GNNTrainer.from_checkpoint(path, seed=1, device="cpu")
-    batch = batch_graphs(graphs)
-    with precision_scope("exact"), torch.no_grad():
-        want = model(batch)
-        for other in (loaded, restored.model):
-            for a, b in zip(other.buffer_leaves(), model.buffer_leaves()):
-                assert torch.equal(a, b)
-            assert torch.equal(other(batch), want)
-    assert restored.epoch == trainer.epoch
-
-
 def test_hardcoded_hyperparameters_are_vocsp():
     hp = hardcoded_hyperparameters("GPS")
     assert (hp.layer_sizes, hp.gps_heads, hp.gps_post_layers) == ([96] * 4, 8, 3)
