@@ -12,13 +12,14 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    sum_agg.cu, fused_gat.cu (GAT's fused attention, its backward and the
    reverse combine), weighted_sum.cu (the weighted combine, its reverse and
    the pair dot), slot_gather.cu (the per-slot gather and its backward) and
-   graph_attn.cu (GraphGPS's varlen attention, forward and backward)
+   graph_attn.cu (GraphGPS's varlen attention, forward and backward) and
+   gated_edge.cu (GraphGPS's GatedGCN edge block, forward and backward)
    (nvcc, sm_90a) and the native host library (g++), all from the sources in
    this checkout, one compiler process each, in parallel; ptxas' registers
    and spills of sum_agg_kernel, max_agg_kernel, wsum_kernel,
    gat_fwd_kernel, gat_bwd_kernel, gat_rev_kernel, pairdot_kernel,
-   slot_gather_bwd_kernel and the gps_flash_ kernels are logged, and a
-   spill fails the run;
+   slot_gather_bwd_kernel, the gps_flash_ and the gated_edge_ kernels are
+   logged, and a spill fails the run;
 3. kernel check: max_agg against its plain PyTorch version on the card at
    random tables of the node bucket 8192 (B=1, D=12/16, F=20/256, f32 and
    bf16, with and without the winner-slot store) and at edge cases; then,
@@ -55,9 +56,14 @@ Phases; the first failure ends the run with a non-zero exit and no result:
    float32 plain versions (phase_graph_attn_check: small shapes, head
    widths 4-32, empty graphs, and the train-gps-b6 cell's shape beside
    torch's flash as a yardstick; padded rows +0.0; two replays of one CUDA
-   graph of forward and backward bitwise equal) and one fast GPS step's
+   graph of forward and backward bitwise equal); GraphGPS's edge block
+   (phase_gated_edge_check: its kernels against the float32 plain version
+   at the train-gps-b6 cell's shape and a small float32 one, two replays
+   bitwise equal, each kernel's device ms against its byte bound, and the
+   block against the plain path) and one fast GPS step's
    kernels under the profiler (check_gps_step_kernels: no SDPA kernel, one
-   gps_flash_fwd_kernel a layer, the launch counts the trace's); and a
+   gps_flash_fwd_kernel a layer, the launch counts the trace's, the edge
+   block's kernels and the unchanged slot gathers); and a
    small GAT with attention dropout must train on the card;
 4. serve: one 240x240x155 synthetic brain written as NIfTI, GSpool [256]*6 and
    CNN 8->16->4 checkpoints from seeded weights in the JAX package's format,
@@ -349,7 +355,7 @@ def phase_build() -> None:
                                            "sum_agg_kernel", "max_agg_kernel",
                                            "pairdot_kernel",
                                            "slot_gather_bwd_kernel",
-                                           "gps_flash_")):
+                                           "gps_flash_", "gated_edge_")):
                     log(f"[build] {kern}: {regs} registers, spill stores "
                         f"{stores} B, spill loads {loads} B")
                     check(stores == loads == 0, f"{kern} spills registers")
@@ -1078,7 +1084,12 @@ def check_gps_step_kernels(dev) -> dict:
     torch.profiler: no kernel of torch's scaled_dot_product_attention, one
     gps_flash_fwd_kernel a layer, every attention backward kernel named
     gps_flash_bwd_..., the wrappers' launches what the trace shows, and
-    finite gradients."""
+    finite gradients. The GatedGCN edge block (ops/kernels/gated_edge.py):
+    gated_edge_gate_kernel and gated_edge_gate_grad_kernel once a layer, the
+    statistics, update and ReLU-gradient kernels once a layer with an edge
+    update, as many launches as the wrappers count; and the slot gathers
+    unchanged: 9 slot_gather_kernel (two a layer and the encoder's) and 8
+    slot_gather_bwd_kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1086,6 +1097,7 @@ def check_gps_step_kernels(dev) -> dict:
     from gnn_tumor_seg_tpu_torch.models.factory import init_graph_net
     from gnn_tumor_seg_tpu_torch.ops.graph import (batch_graphs, graph_from_arrays,
                                                    masked_copy)
+    from gnn_tumor_seg_tpu_torch.ops.kernels import gated_edge as ge
     from gnn_tumor_seg_tpu_torch.ops.kernels import graph_attn as ga
     from gnn_tumor_seg_tpu_torch.ops.precision import precision_scope
 
@@ -1095,11 +1107,14 @@ def check_gps_step_kernels(dev) -> dict:
                           rslot=True)
     batch = batch_graphs([g, masked_copy(g)], n_pad=4096).to(dev)
     before = (ga.graph_attn.launches, ga.graph_attn_backward.launches)
+    edge_before = (ge.gated_edge_forward.launches, ge.gated_edge_backward.launches)
     with precision_scope("fast"), profile(activities=[ProfilerActivity.CUDA]) as prof:
         model(batch, train=True).sum().backward()
         torch.cuda.synchronize()
     launched = (ga.graph_attn.launches - before[0],
                 ga.graph_attn_backward.launches - before[1])
+    edge_launched = (ge.gated_edge_forward.launches - edge_before[0],
+                     ge.gated_edge_backward.launches - edge_before[1])
     names = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
@@ -1114,9 +1129,18 @@ def check_gps_step_kernels(dev) -> dict:
     other = [k for k in names if "gps_flash" in k and "flash_fwd_kernel" not in k
              and "flash_bwd" not in k]
     grads = [p.grad for p in model.parameters() if p.grad is not None]
+
+    def launches_of(name):
+        return sum(c for k, c in names.items() if name in k)
+
+    edge = {k: launches_of(f"gated_edge_{k}_kernel")
+            for k in ("gate", "stats", "update", "relu_grad", "stats_grad", "gate_grad")}
+    gathers = (launches_of("slot_gather_kernel"), launches_of("slot_gather_bwd_kernel"))
     found = {"sdpa_kernels": sdpa, "flash_fwd_kernel": fwd,
              "gps_flash_fwd_kernel": gps_fwd, "gps_flash_bwd": bwd,
-             "launches": launched, "layers": layers}
+             "launches": launched, "layers": layers, "gated_edge": edge,
+             "gated_edge_launches": edge_launched, "slot_gather": gathers,
+             "gated_edge_fused": sum(layer.gated_edge_fused for layer in model.layers)}
     log("[graph_attn] a fast GPS step's attention kernels: " + json.dumps(found))
     check(not sdpa, f"a fast GPS step launched SDPA kernels: {sdpa}")
     check(fwd == gps_fwd == layers, f"expected {layers} gps_flash_fwd_kernel, "
@@ -1127,6 +1151,16 @@ def check_gps_step_kernels(dev) -> dict:
           f"trace's {(fwd, bwd)}")
     check(bool(grads) and all(bool(torch.isfinite(t).all()) for t in grads),
           "a fast GPS step gave non-finite gradients")
+    once, edge_out = layers, layers - 1
+    want = {"gate": once, "stats": edge_out, "update": edge_out,
+            "relu_grad": edge_out, "stats_grad": edge_out, "gate_grad": once}
+    check(edge == want, f"gated_edge kernels {edge}, expected {want}")
+    check(edge_launched == (once + 2 * edge_out, once + 2 * edge_out),
+          f"gated_edge wrapper launches {edge_launched} differ from the trace's")
+    check(found["gated_edge_fused"] == layers, "a GPS layer's edge block took "
+          "the plain version")
+    check(gathers == (2 * layers + 1, 2 * layers),
+          f"slot gathers {gathers}, expected {(2 * layers + 1, 2 * layers)}")
     return found
 
 
@@ -1179,6 +1213,220 @@ def phase_graph_attn_timing(card: str) -> dict:
     row["step_bound_ms"] = GPS_ATTN_LAYERS * row["bound_ms"]
     row["visited_pair_share"] = B * ga.visited_pairs(n) * H / pairs
     log(f"[graph_attn] {card}: " + json.dumps(row))
+    return row
+
+
+# GraphGPS's GatedGCN edge block (ops/kernels/gated_edge.py) at the
+# train-gps-b6 cell's shape: B graphs of N padded rows, n real ones, D slots
+# of which each real row fills a prefix of 10-19 (the kNN's degrees), W
+# channels; bf16
+GATED_EDGE_SHAPE = (6, 8192, 24, 96, 7000)
+# bf16 kernels against the float32 plain version on the same bf16 inputs,
+# relative to the largest value (tests/test_torch_port_gated_edge.py): ê, y
+# and every output rounded to 8 bits before the sums and the BatchNorm; an
+# output is held to this or to twice the plain bf16 version's own gap, where
+# larger (a y within a rounding of 0 takes the other side of the ReLU, in
+# both bf16 paths, and moves its channel's gradients by a whole upstream
+# value)
+GATED_EDGE_FWD_TOL = 2e-2
+GATED_EDGE_BWD_TOL = 5e-2
+
+
+def gated_edge_inputs(dev, B, N, D, W, n, dtype, seed):
+    """The block's inputs on the card as the model feeds them: eW, e_j, b_j
+    normal on the real slots (e_j, b_j 0 on padded ones), e normal, d and a
+    normal, the upstream gradients dx and de (de 0 on padded slots), the mask
+    and each row's padded slots, and a seeded MaskedBatchNorm."""
+    from gnn_tumor_seg_tpu_torch.models.gps import MaskedBatchNorm
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    deg = torch.randint(10, 20, (B, N, 1), generator=gen, device=dev)
+    rows = torch.arange(N, device=dev)[None, :, None] < n
+    emask = ((torch.arange(D, device=dev) < deg) & rows).float()
+    m = emask[..., None]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    t = {"e": randn(B, N, D, W), "w_c": randn(W, W) / math.sqrt(W),
+         "e_j": randn(B, N, D, W) * m, "b_j": randn(B, N, D, W) * m,
+         "d": randn(B, N, W), "a": randn(B, N, W), "dx": randn(B, N, W),
+         "de": randn(B, N, D, W) * m}
+    t = {k: v.to(dtype) for k, v in t.items()}
+    bn = MaskedBatchNorm(W).to(dev)
+    with torch.no_grad():
+        bn.g.uniform_(-0.5, 0.5, generator=gen)
+        bn.b.uniform_(-0.2, 0.2, generator=gen)
+    return t, emask, D - emask.sum(-1, keepdim=True), emask.sum(), bn
+
+
+def gated_edge_run(block, t, emask, pad, count, bn, train=True, dtype=None):
+    """Forward and backward of `block` (gated_edge or gated_edge_plain) on
+    copies of the inputs (cast to dtype) and of the BatchNorm: (x, e',
+    running mean and variance, {input: gradient})."""
+    from gnn_tumor_seg_tpu_torch.models.gps import MaskedBatchNorm
+
+    dtype = dtype or t["e"].dtype
+    leaves = {k: t[k].to(dtype).detach().clone().requires_grad_(True)
+              for k in ("e", "w_c", "e_j", "b_j", "d", "a")}
+    norm = MaskedBatchNorm(bn.g.shape[0]).to(bn.g.device)
+    norm.load_state_dict(bn.state_dict())
+    x, e_new = block(*leaves.values(), emask, pad, norm, count, train)
+    torch.autograd.backward([x, e_new], [t["dx"].to(dtype), t["de"].to(dtype)])
+    grads = {k: v.grad for k, v in leaves.items()}
+    grads.update(g=norm.g.grad, b=norm.b.grad)
+    return x, e_new, norm.running_mean, norm.running_var, grads
+
+
+def phase_gated_edge_check(card: str) -> dict:
+    """The edge block's kernels (ops/kernels/gated_edge.py) against the float32
+    plain version on the same inputs: at the train-gps-b6 cell's shape
+    (GATED_EDGE_SHAPE, bf16, training and evaluation) and at a small float32
+    shape with W = 6 (one-channel runs): x, e' on real slots (+0.0 on padded
+    ones), the running statistics, and the gradients of e, w_c, e_j, b_j (real
+    slots), d, a and BN_e's g and b within GATED_EDGE_FWD_TOL /
+    GATED_EDGE_BWD_TOL of the largest value or twice the plain bf16
+    version's gap, where larger (float32: 1e-4); two replays of
+    one CUDA graph of the forward and backward kernels bitwise equal (no
+    atomics). Then, at the cell's shape, each kernel's device ms (profiler,
+    10 launches) against its byte bound (each tensor read or written once, the
+    edge tensors' reads on real slots only), the block's forward and backward
+    through the kernels and their GEMMs (CUDA-graph replay) against the plain
+    version's (bf16, autograd: the path before the kernels). Returns the
+    errors and times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnn_tumor_seg_tpu_torch.ops.kernels import gated_edge as ge
+
+    dev = torch.device("cuda")
+    worst = {}
+
+    def gap(got, want, mask=None):
+        got, want = got.float(), want.float()
+        if mask is not None:
+            keep = mask[..., None].expand_as(want) > 0
+            got, want = got[keep], want[keep]
+        top = want.abs().max().item()
+        return (got - want).abs().max().item() / top if top else 0.0
+
+    def gaps(got, want, emask):
+        out = {"x": gap(got[0], want[0]), "e_new": gap(got[1], want[1], emask),
+               "running_mean": gap(got[2], want[2]), "running_var": gap(got[3], want[3])}
+        out.update({"d" + k: gap(v, want[4][k], emask if k == "b_j" else None)
+                    for k, v in got[4].items()})
+        return out
+
+    def run_case(B, N, D, W, n, dtype, train, seed, tag):
+        t, emask, pad, count, bn = gated_edge_inputs(dev, B, N, D, W, n, dtype, seed)
+        if not train:
+            with torch.no_grad():
+                bn.running_mean.uniform_(-0.5, 0.5)
+                bn.running_var.uniform_(0.5, 1.5)
+        got = gated_edge_run(ge.gated_edge, t, emask, pad, count, bn, train)
+        torch.cuda.synchronize()
+        want = gated_edge_run(ge.gated_edge_plain, t, emask, pad, count, bn, train,
+                              dtype=torch.float32)
+        found = gaps(got, want, emask)
+        if dtype == torch.float32:
+            limits = {k: 1e-4 for k in found}
+        else:
+            plain = gaps(gated_edge_run(ge.gated_edge_plain, t, emask, pad, count, bn,
+                                        train), want, emask)
+            limits = {k: max(GATED_EDGE_BWD_TOL if k.startswith("d") else
+                             GATED_EDGE_FWD_TOL, 2 * plain[k]) for k in found}
+            worst.update({f"{tag}.plain_bf16.{k}": v for k, v in plain.items()})
+        for k, v in found.items():
+            worst[f"{tag}.{k}"] = v
+            check(v <= limits[k], f"gated_edge {k} off by {v:.3g} ({tag}; limit "
+                  f"{limits[k]:.3g})")
+        check(not _bits(got[1][emask == 0]).any(),
+              f"gated_edge e' is not +0.0 on padded slots ({tag})")
+        for k, v in got[4].items():
+            check(bool(torch.isfinite(v if k != "b_j" else v[emask > 0]).all()),
+                  f"gated_edge d{k} is not finite ({tag})")
+        del got, want
+        torch.cuda.empty_cache()
+        return t, emask, pad, count, bn
+
+    B, N, D, W, n = GATED_EDGE_SHAPE
+    run_case(3, 64, 5, 6, 50, torch.float32, True, 1, "small_f32")
+    run_case(B, N, D, W, n, torch.bfloat16, False, 2, "cell_eval")
+    t, emask, pad, count, bn = run_case(B, N, D, W, n, torch.bfloat16, True, 3, "cell")
+    ew = t["e"] @ t["w_c"]
+    args = (ew, t["e_j"], t["b_j"], t["d"], t["a"], emask, t["e"], bn, count, True)
+
+    def fwd_bwd():
+        x, e_new, (e_hat, den, num, stats) = ge.gated_edge_forward(*args)
+        return (x, e_new) + ge.gated_edge_backward(
+            t["dx"], t["de"], e_hat, t["b_j"], emask, den, num, stats, bn.g, count,
+            True)
+
+    # two replays of one captured forward and backward
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fwd_bwd()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    state = [v.clone() for v in (bn.running_mean, bn.running_var)]
+    with torch.cuda.graph(graph):
+        outs = fwd_bwd()
+    firsts = []
+    for _ in range(2):
+        bn.running_mean.copy_(state[0])
+        bn.running_var.copy_(state[1])
+        graph.replay()
+        torch.cuda.synchronize()
+        firsts.append([o.clone() for o in outs if o is not None]
+                      + [bn.running_mean.clone(), bn.running_var.clone()])
+    real = emask > 0
+    same = all(torch.equal(_bits(a[real] if a.shape == t["e"].shape else a),
+                           _bits(b[real] if b.shape == t["e"].shape else b))
+               for a, b in zip(*firsts))
+    check(same, "gated_edge replays differ")
+    del graph, outs, firsts
+
+    # each kernel's device time at the cell's shape
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fwd_bwd()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in device_events(prof):
+        if "gated_edge_" in e.key:
+            name = e.key.split("gated_edge_", 1)[1].split("<", 1)[0].split("(", 1)[0]
+            kernels[name] = _device_us(e) / max(e.count, 1) / 1e3
+    rho = emask.mean().item()
+    E = B * N * D * W * t["e"].element_size()           # one edge tensor
+    node = B * N * W * t["e"].element_size()             # one node tensor
+    table = emask.numel() * 4
+    nbytes = {"gate_kernel": 3 * rho * E + rho * E + table + 3 * node + 8 * B * N * W,
+              "update_kernel": 2 * rho * E + E + table,
+              "relu_grad_kernel": 2 * rho * E + table,
+              "gate_grad_kernel": 3 * rho * E + E + rho * E + table + 2 * node
+                                  + 8 * B * N * W}
+    row = {"shape": GATED_EDGE_SHAPE, "real_slot_share": rho, "kernels_ms": kernels,
+           "bound_ms": {k: v / HBM_BYTES_PER_S * 1e3 for k, v in nbytes.items()}}
+    row["bound_share"] = {k: row["bound_ms"][k] / kernels[k] for k in nbytes
+                          if kernels.get(k)}
+    row["kernels_step_ms"] = ((GPS_ATTN_LAYERS - 1) * sum(kernels.values())
+                              + kernels.get("gate_kernel", 0)
+                              + kernels.get("gate_grad_kernel", 0))
+
+    # the block forward and backward: kernels and GEMMs against the plain path
+    def block(fn):
+        leaves = [t[k].detach().requires_grad_(True)
+                  for k in ("e", "w_c", "e_j", "b_j", "d", "a")]
+
+        def go():
+            x, e_new = fn(*leaves, emask, pad, bn, count, True)
+            torch.autograd.grad([x, e_new], leaves + [bn.g, bn.b], [t["dx"], t["de"]])
+        return go
+
+    row["block_ms"] = time_device(block(ge.gated_edge), reps=5, inner=5)
+    row["plain_block_ms"] = time_device(block(ge.gated_edge_plain), reps=5, inner=5)
+    row["errors"] = worst
+    log(f"[gated_edge] {card}: " + json.dumps(row))
     return row
 
 
@@ -2033,7 +2281,7 @@ def rank_launches(counts: dict, label: str) -> dict:
     """A rank's launches from parallel/collectives.launches_by_rank (every
     wrapper of ops/kernels.launch_counts) restricted to NO_LAUNCHES' kernels,
     after checking that the others launched nothing: GraphGPS's attention
-    kernels, which no distributed path runs."""
+    and edge-block kernels, which no distributed path runs."""
     other = {k: v for k, v in counts.items() if k not in NO_LAUNCHES}
     check(not any(other.values()), f"{label}: unexpected launches {other}")
     return {k: counts[k] for k in NO_LAUNCHES}
@@ -4134,6 +4382,7 @@ def run_phases(stack: contextlib.ExitStack) -> int:
     gat_worst = phase_gat_kernel_check(dev)
     dec_worst = phase_decomposed_kernel_check(dev)
     attn_worst = phase_graph_attn_check(dev)
+    edge_row = phase_gated_edge_check(card)
     attn_step = check_gps_step_kernels(dev)
     check_gat_dropout_trains(dev)
     done("phase 3")
@@ -4432,6 +4681,25 @@ def run_phases(stack: contextlib.ExitStack) -> int:
                 f"at (B, N, H, F, n) = {GPS_ATTN_SHAPE}, bf16; library: "
                 "flash_padded (torch's flash SDPA at head width 16, every padded pair)"),
         "per_pass": atime,
+    })
+    kernels.append({
+        "name": "gated_edge",
+        "route": "cuda",
+        "source": "gnn_tumor_seg_tpu_torch/ops/kernels/csrc/gated_edge.cu",
+        "replaces": ("none: GraphGPS has no JAX counterpart (PyTorch's elementwise "
+                     "and reduction kernels before)"),
+        "launches_per_fast_gps_step": attn_step["gated_edge"],
+        "max_rel_err": edge_row["errors"],
+        "ms": edge_row["kernels_step_ms"],
+        "ms_per_launch": edge_row["kernels_ms"],
+        "bound_ms_per_launch": edge_row["bound_ms"],
+        "bound_by": "bytes",
+        "block_ms": edge_row["block_ms"],
+        "plain_block_ms": edge_row["plain_block_ms"],
+        "per": (f"one train-gps-b6 step's edge blocks ({GPS_ATTN_LAYERS - 1} with the "
+                f"edge update, 1 without) at (B, N, D, W, n) = {GATED_EDGE_SHAPE}, "
+                "bf16; block_ms: one block's forward and backward with its GEMMs, "
+                "plain_block_ms: the same through the plain version"),
     })
     check(serve["gat"]["launches"] > 0, "gat_fwd was never launched on the serve path")
     for k in ("max_agg", "gat_fwd"):

@@ -53,7 +53,11 @@ so that g = 0 is torch's initial scale.
 The message passing reads each slot's neighbour rows through the slot
 gather of ops/kernels/slot_gather.py: B h_j and E h_j (a gather each, so
 that both edge tensors are contiguous; the gradient through the graph's
-`rslot`), and the input features for the edge encoder.
+`rslot`), and the input features for the edge encoder. From C e to e' the
+block is ops/kernels/gated_edge.py's: its kernels off the CPU (a few passes
+over each edge tensor, forward and backward; padded slots of e' are 0
+there), its plain version, the composition above, on the CPU and under
+dropout, whose edge mask it then draws before the node's.
 
 The attention reads the projection qkv [B, N, 3W] (q | k | v, heads of
 W / H columns) and gives att [B, N, W], the layout `@ w_o` takes. In "fast"
@@ -76,7 +80,8 @@ Spans (spans.py) `gps.local`, `gps.attn` and `gps.ffn` time each layer's
 three blocks into `host_s` (eager steps; a captured step records them
 once) and under a profiler open their record_function copies.
 `step_counts` gives the trainer the step's attention pairs: those the
-varlen forward visits in "fast", every padded pair in "exact".
+varlen forward visits in "fast", every padded pair in "exact"; and its
+GatedGCN edge blocks, all of them and those that took the kernels.
 """
 
 from __future__ import annotations
@@ -90,15 +95,12 @@ from torch import nn
 
 from .. import spans
 from ..ops.graph import GraphBatch
-from ..ops.kernels import graph_attn, slot_gather
+from ..ops.kernels import gated_edge, graph_attn, slot_gather
 from ..ops.precision import compute_dtype
 from .sage import _dropout
 
 __all__ = ["GPS", "GPSLayer", "MaskedBatchNorm"]
 
-BN_EPS = 1e-5
-BN_MOMENTUM = 0.1
-GATE_EPS = 1e-6
 # the score offset of a padded key, before the softmax scale
 _PAD_KEY = -1e4
 
@@ -127,6 +129,10 @@ def _linear(module: nn.Module, name: str, fan_in: int, fan_out: int,
 class MaskedBatchNorm(nn.Module):
     """BatchNorm1d over the real rows of a padded tensor (module doc): the
     scale offset g and the shift b, and the running statistics."""
+
+    # torch's BatchNorm1d defaults (read by ops/kernels/gated_edge.py too)
+    eps = 1e-5
+    momentum = 0.1
 
     def __init__(self, width: int):
         super().__init__()
@@ -160,11 +166,11 @@ class MaskedBatchNorm(nn.Module):
                    - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 unbiased = var * (count / (count - 1.0).clamp_min(1.0))
-                self.running_mean.lerp_(mean, BN_MOMENTUM)
-                self.running_var.lerp_(unbiased, BN_MOMENTUM)
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(unbiased, self.momentum)
         else:
             mean, var = self.running_mean, self.running_var
-        a = torch.rsqrt(var + BN_EPS) * (1.0 + self.g)
+        a = torch.rsqrt(var + self.eps) * (1.0 + self.g)
         c = self.b - mean * a
         y = torch.addcmul(c.to(x.dtype), x, a.to(x.dtype))
         return y if m is None else y * m
@@ -251,6 +257,8 @@ class GPSLayer(nn.Module):
         _linear(self, "ff2", 2 * width, width, generator)
         self.bn_ff = MaskedBatchNorm(width)
         self.host_s: dict = {}
+        # whether the last forward's edge block took the kernels
+        self.gated_edge_fused = False
 
     def forward(self, graph: GraphBatch, h: torch.Tensor, e: torch.Tensor,
                 counts, train: bool, dropout: float = 0.0,
@@ -272,24 +280,17 @@ class GPSLayer(nn.Module):
                                                  + p(f"b_{c}"), graph.nbr, emask,
                                                  graph.rslot)
                         for k, c in ((2, "b"), (3, "e")))
-            # ê = C e + E h_j + D h_i, added into the product and masked once:
-            # 0 on padded slots, whose sigmoid 1/2 the denominator takes out
-            # again (B h_j is 0 there, so the numerator needs nothing)
-            e_hat = ((e @ p("w_c")).add_(e_j).add_(d[:, :, None, :])
-                     .mul_(emask[..., None].to(cd)))
-            sigma = torch.sigmoid(e_hat)
-            den = sigma.sum(2, dtype=torch.float32) - 0.5 * pad_slots
-            num = (sigma * b_j).sum(2, dtype=torch.float32)
-            x = a + (num / (den + GATE_EPS)).to(cd)
+            # ê = C e + E h_j + D h_i, the gate and the edge update
+            # (ops/kernels/gated_edge.py; dropout between them takes the
+            # plain version)
+            drop_e = (lambda t: _dropout(t, drop, generator)) if drop else None
+            self.gated_edge_fused = gated_edge.takes_kernels(e, drop_e)
+            x, e = gated_edge.gated_edge(
+                e, p("w_c"), e_j, b_j, d, a, emask, pad_slots,
+                self.bn_e if self.edge_out else None, n_edges, train, drop_e)
             x = torch.relu(self.bn_x(x, nmask, n_nodes, train))
-            h_local = h + _dropout(x, drop, generator)
-            if self.edge_out:
-                # ê is 0 on padded slots already; e's padded slots stay unread
-                e_new = torch.relu(self.bn_e(e_hat, None, n_edges, train))
-                e = e + _dropout(e_new, drop, generator)
-            else:
-                e = None
-            h_local = self.bn_local(h_local, nmask, n_nodes, train)
+            h_local = self.bn_local(h + _dropout(x, drop, generator), nmask,
+                                    n_nodes, train)
         with spans.span("gps.attn", self.host_s, "attn"):
             b_qkv = torch.cat([p("b_q"), p("b_k"), p("b_v")])
             qkv = h @ p("w_qkv") + b_qkv
@@ -385,14 +386,19 @@ class GPS(nn.Module):
         attention computes (attn_pairs: in "fast" those of the varlen
         forward's tiles, graph_attn.visited_pairs; in "exact" n_pad^2 a
         graph) and those between real nodes (attn_real_pairs), over every
-        head of every layer."""
+        head of every layer; the GatedGCN edge blocks (gated_edge_layers,
+        one a layer) and those of them whose last forward took the kernels
+        of ops/kernels/gated_edge.py (gated_edge_fused)."""
         per = self.heads * self.num_layers
         if compute_dtype() == torch.bfloat16:
             pairs = sum(graph_attn.visited_pairs(int(n)) for n in n_nodes)
         else:
             pairs = len(n_nodes) * n_pad * n_pad
         return {"attn_pairs": per * pairs,
-                "attn_real_pairs": per * sum(int(n) * int(n) for n in n_nodes)}
+                "attn_real_pairs": per * sum(int(n) * int(n) for n in n_nodes),
+                "gated_edge_layers": self.num_layers,
+                "gated_edge_fused": sum(layer.gated_edge_fused
+                                        for layer in self.layers)}
 
     def forward(self, graph: GraphBatch, h: torch.Tensor | None = None,
                 train: bool = False,

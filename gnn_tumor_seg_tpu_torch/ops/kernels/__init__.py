@@ -1,6 +1,6 @@
 """The Hopper kernels of the port and their plain PyTorch versions, one
 module each (max_agg, sum_agg, fused_gat, weighted_sum, slot_gather,
-graph_attn); every wrapper counts its kernel launches in its `.launches`."""
+graph_attn, gated_edge); every wrapper counts its kernel launches in its `.launches`."""
 
 __all__ = ["launch_counts"]
 
@@ -8,7 +8,8 @@ __all__ = ["launch_counts"]
 def launch_counts() -> dict[str, int]:
     """Every kernel wrapper's launch count so far in this process (0 for a
     wrapper that a caller has swapped for a function without a count)."""
-    from . import fused_gat, graph_attn, max_agg, slot_gather, sum_agg, weighted_sum
+    from . import (fused_gat, gated_edge, graph_attn, max_agg, slot_gather, sum_agg,
+                   weighted_sum)
 
     fns = {"max_agg": max_agg.max_aggregate,
            "max_agg_bwd": max_agg.max_aggregate_backward,
@@ -22,5 +23,7 @@ def launch_counts() -> dict[str, int]:
            "slot_gather": slot_gather.slot_gather,
            "slot_gather_bwd": slot_gather.slot_gather_backward,
            "gps_attn": graph_attn.graph_attn,
-           "gps_attn_bwd": graph_attn.graph_attn_backward}
+           "gps_attn_bwd": graph_attn.graph_attn_backward,
+           "gated_edge": gated_edge.gated_edge_forward,
+           "gated_edge_bwd": gated_edge.gated_edge_backward}
     return {k: getattr(fn, "launches", 0) for k, fn in fns.items()}

@@ -44,8 +44,9 @@ captured step's replay and the clone of its loss) and the epoch's one
 `epoch_sync`; with `cache_misses` and `upload_bytes`, the graphs and bytes
 copied to the device on misses, and `graph_captures` and `graph_replays`,
 the steps captured and replayed. A model with `step_counts` (GPS: its
-attention pairs, `attn_pairs` and `attn_real_pairs`) adds its counters of
-every step, replayed or eager, from the batch's node counts on the host.
+attention pairs, `attn_pairs` and `attn_real_pairs`, and its GatedGCN edge
+blocks, `gated_edge_layers` and `gated_edge_fused`) adds its counters of
+every step, replayed or eager, on the host.
 
 Metric vector of `evaluate`, as the reference: loss; WT/CT/ET node Dice;
 WT/CT/ET voxel Dice; WT/CT/ET HD95; plus predicted and true node-label counts
