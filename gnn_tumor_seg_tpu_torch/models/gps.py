@@ -56,8 +56,10 @@ that both edge tensors are contiguous; the gradient through the graph's
 `rslot`), and the input features for the edge encoder. From C e to e' the
 block is ops/kernels/gated_edge.py's: its kernels off the CPU (a few passes
 over each edge tensor, forward and backward; padded slots of e' are 0
-there), its plain version, the composition above, on the CPU and under
-dropout, whose edge mask it then draws before the node's.
+there), its plain version, the composition above, on the CPU. Under
+dropout the layer draws the node's mask of x and then the edge update's
+before the block runs, the order in which its dropouts always drew them,
+and hands the block the edge mask.
 
 The attention reads the projection qkv [B, N, 3W] (q | k | v, heads of
 W / H columns) and gives att [B, N, W], the layout `@ w_o` takes. In "fast"
@@ -81,7 +83,8 @@ three blocks into `host_s` (eager steps; a captured step records them
 once) and under a profiler open their record_function copies.
 `step_counts` gives the trainer the step's attention pairs: those the
 varlen forward visits in "fast", every padded pair in "exact"; and its
-GatedGCN edge blocks, all of them and those that took the kernels.
+GatedGCN edge blocks, all of them and those whose last forward launched
+the kernels.
 """
 
 from __future__ import annotations
@@ -103,6 +106,17 @@ __all__ = ["GPS", "GPSLayer", "MaskedBatchNorm"]
 
 # the score offset of a padded key, before the softmax scale
 _PAD_KEY = -1e4
+
+
+def _keep_mask(shape, rate: float, generator: torch.Generator | None, device):
+    """The mask of models/sage.py's _dropout, drawn on its own (True keeps)."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def _dropped(h: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """models/sage.py's _dropout of h with the mask `keep`."""
+    return torch.where(keep, h / (1.0 - rate),
+                       torch.zeros((), dtype=h.dtype, device=h.device))
 
 
 def _uniform(shape, bound: float, generator: torch.Generator | None):
@@ -257,7 +271,7 @@ class GPSLayer(nn.Module):
         _linear(self, "ff2", 2 * width, width, generator)
         self.bn_ff = MaskedBatchNorm(width)
         self.host_s: dict = {}
-        # whether the last forward's edge block took the kernels
+        # whether the last forward's edge block launched the kernels
         self.gated_edge_fused = False
 
     def forward(self, graph: GraphBatch, h: torch.Tensor, e: torch.Tensor,
@@ -280,17 +294,24 @@ class GPSLayer(nn.Module):
                                                  + p(f"b_{c}"), graph.nbr, emask,
                                                  graph.rslot)
                         for k, c in ((2, "b"), (3, "e")))
+            # dropout's masks of x and of the edge update, in that order
+            keep_x = keep_e = None
+            if drop:
+                keep_x = _keep_mask(a.shape, drop, generator, a.device)
+                if self.edge_out:
+                    keep_e = _keep_mask(e.shape, drop, generator, e.device)
             # ê = C e + E h_j + D h_i, the gate and the edge update
-            # (ops/kernels/gated_edge.py; dropout between them takes the
-            # plain version)
-            drop_e = (lambda t: _dropout(t, drop, generator)) if drop else None
-            self.gated_edge_fused = gated_edge.takes_kernels(e, drop_e)
+            # (ops/kernels/gated_edge.py)
+            launched = gated_edge.gated_edge_forward.launches
             x, e = gated_edge.gated_edge(
                 e, p("w_c"), e_j, b_j, d, a, emask, pad_slots,
-                self.bn_e if self.edge_out else None, n_edges, train, drop_e)
+                self.bn_e if self.edge_out else None, n_edges, train,
+                None if keep_e is None else (keep_e, drop))
+            self.gated_edge_fused = gated_edge.gated_edge_forward.launches > launched
             x = torch.relu(self.bn_x(x, nmask, n_nodes, train))
-            h_local = self.bn_local(h + _dropout(x, drop, generator), nmask,
-                                    n_nodes, train)
+            if keep_x is not None:
+                x = _dropped(x, keep_x, drop)
+            h_local = self.bn_local(h + x, nmask, n_nodes, train)
         with spans.span("gps.attn", self.host_s, "attn"):
             b_qkv = torch.cat([p("b_q"), p("b_k"), p("b_v")])
             qkv = h @ p("w_qkv") + b_qkv
@@ -387,8 +408,8 @@ class GPS(nn.Module):
         forward's tiles, graph_attn.visited_pairs; in "exact" n_pad^2 a
         graph) and those between real nodes (attn_real_pairs), over every
         head of every layer; the GatedGCN edge blocks (gated_edge_layers,
-        one a layer) and those of them whose last forward took the kernels
-        of ops/kernels/gated_edge.py (gated_edge_fused)."""
+        one a layer) and those of them whose last forward launched the
+        kernels of ops/kernels/gated_edge.py (gated_edge_fused)."""
         per = self.heads * self.num_layers
         if compute_dtype() == torch.bfloat16:
             pairs = sum(graph_attn.visited_pairs(int(n)) for n in n_nodes)

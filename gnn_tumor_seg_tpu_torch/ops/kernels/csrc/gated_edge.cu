@@ -6,6 +6,7 @@
 //   d, a, x, dx, dd                               [R, W]      the same type
 //   den, num                                      [R, W]      float32
 //   mask                                          [R, D]      float32 (> 0 on a real slot)
+//   keep                                          [R, D, W]   uint8 (bool), dropout's mask
 //   part                                          [2, P, W]   float32, one row a block
 //   stats                                         [7, W]      float32 (mean, inv, a, c, a_r, c_r, var_ok)
 //
@@ -30,9 +31,13 @@
 //    the running statistics as MaskedBatchNorm does (momentum, the unbiased
 //    variance); in evaluation it reads the running statistics instead.
 // 3. gated_edge_update_kernel: e' = e + ReLU(round(ê a_r + c_r)) on the real
-//    slots, 0 on the padded ones (which no later reader takes).
+//    slots, 0 on the padded ones (which no later reader takes). With
+//    kDrop, the ReLU's output passes dropout first: keep ? round(v scale) :
+//    0, scale = 1 / (1 - rate), the mask drawn by torch beforehand (as the
+//    plain version's torch.where(keep, v / (1 - rate), 0)).
 // 4. gated_edge_relu_grad_kernel: each block's sums of dy = g 1[y > 0] and
-//    dy ê over the real slots, y recomputed as the forward rounded it.
+//    dy ê over the real slots, y recomputed as the forward rounded it (with
+//    kDrop, g through dropout: keep ? round(g scale) : 0).
 // 5. gated_edge_stats_grad_kernel: the BatchNorm's backward over the
 //    channel sums (fixed order): dg, db, and the two coefficients k1, k2
 //    with which every real slot's dê gains k1 + k2 ê.
@@ -160,6 +165,16 @@ __device__ __forceinline__ float sigmoid(float t) { return 1.f / (1.f + expf(-t)
 template <typename Word>
 __device__ __forceinline__ float bn_out(float e_hat, float a_r, float c_r) {
   return rnd<Word>(__fmaf_rn(e_hat, a_r, c_r));
+}
+
+// the upstream gradient of the edge update's ReLU output through dropout:
+// keep ? round(g scale) : 0, as autograd takes it back through torch.where
+// and the scaling
+template <typename Word, bool kDrop>
+__device__ __forceinline__ float dropped(float g, const uint8_t* __restrict__ keep,
+                                         int off, float scale) {
+  if constexpr (kDrop) return __ldg(keep + off) ? rnd<Word>(__fmul_rn(g, scale)) : 0.f;
+  return g;
 }
 
 enum Stat { kMean = 0, kInv, kA, kC, kAr, kCr, kVarOk, kNumStats };
@@ -313,11 +328,13 @@ gated_edge_stats_kernel(const float* __restrict__ part, int P,
   stats[kVarOk * W + w] = ok;
 }
 
-// 3. The edge update e' = e + ReLU(y), one thread per (slot, run of V).
-template <typename Word, int V>
+// 3. The edge update e' = e + ReLU(y) (with kDrop, ReLU(y) through
+// dropout), one thread per (slot, run of V).
+template <typename Word, int V, bool kDrop>
 __global__ void __launch_bounds__(kFlatThreads)
 gated_edge_update_kernel(const Word* __restrict__ e, const Word* __restrict__ e_hat,
                          const float* __restrict__ mask, const float* __restrict__ stats,
+                         const uint8_t* __restrict__ keep, float scale,
                          Word* __restrict__ e_new, int slots, int W) {
   const int tpn = W / V;
   const int i = blockIdx.x * kFlatThreads + threadIdx.x;
@@ -335,17 +352,22 @@ gated_edge_update_kernel(const Word* __restrict__ e, const Word* __restrict__ e_
   channel<V>(stats, kAr, W, c0, ar);
   channel<V>(stats, kCr, W, c0, cr);
 #pragma unroll
-  for (int k = 0; k < V; ++k) ev[k] += fmaxf(bn_out<Word>(h[k], ar[k], cr[k]), 0.f);
+  for (int k = 0; k < V; ++k) {
+    float y = fmaxf(bn_out<Word>(h[k], ar[k], cr[k]), 0.f);
+    if constexpr (kDrop) y = __ldg(keep + off + k) ? rnd<Word>(__fmul_rn(y, scale)) : 0.f;
+    ev[k] += y;
+  }
   store<Word, V>(e_new + off, ev);
 }
 
 // 4. The blocks' sums of dy and dy ê over the real slots.
-template <typename Word, int V>
+template <typename Word, int V, bool kDrop>
 __global__ void __launch_bounds__(kRowThreads, 2)
 gated_edge_relu_grad_kernel(const Word* __restrict__ g, const Word* __restrict__ e_hat,
                             const float* __restrict__ mask,
-                            const float* __restrict__ stats, float* __restrict__ part,
-                            int R, int D, int W) {
+                            const float* __restrict__ stats,
+                            const uint8_t* __restrict__ keep, float scale,
+                            float* __restrict__ part, int R, int D, int W) {
   extern __shared__ float red[];
   const int tpn = W / V;
   const int rows = blockDim.x / tpn;
@@ -377,9 +399,12 @@ gated_edge_relu_grad_kernel(const Word* __restrict__ g, const Word* __restrict__
         float gv[V], h[V];
         unpack<Word, V>(rg[c], gv);
         unpack<Word, V>(rh[c], h);
+        const int off = (r * D + k0 + c) * W + c0;
 #pragma unroll
         for (int i = 0; i < V; ++i) {
-          const float dy = bn_out<Word>(h[i], ar[i], cr[i]) > 0.f ? gv[i] : 0.f;
+          const float dy = bn_out<Word>(h[i], ar[i], cr[i]) > 0.f
+                               ? dropped<Word, kDrop>(gv[i], keep, off + i, scale)
+                               : 0.f;
           s1[i] += dy;
           s2[i] = __fmaf_rn(dy, h[i], s2[i]);
         }
@@ -436,14 +461,16 @@ gated_edge_stats_grad_kernel(const float* __restrict__ part, int P,
   kk[W + w] = k2;
 }
 
-// 6. The gate's backward: dt, db_j and dd; with kBn the BatchNorm's dê.
-template <typename Word, int V, bool kBn>
+// 6. The gate's backward: dt, db_j and dd; with kBn the BatchNorm's dê
+// (with kDrop, its upstream gradient through dropout).
+template <typename Word, int V, bool kBn, bool kDrop>
 __global__ void __launch_bounds__(kRowThreads, 2)
 gated_edge_gate_grad_kernel(const Word* __restrict__ dx, const float* __restrict__ den,
                             const float* __restrict__ num, const Word* __restrict__ e_hat,
                             const Word* __restrict__ bj, const Word* __restrict__ g,
                             const float* __restrict__ mask,
                             const float* __restrict__ stats, const float* __restrict__ kk,
+                            const uint8_t* __restrict__ keep, float scale,
                             Word* __restrict__ dt, Word* __restrict__ dbj,
                             Word* __restrict__ dd, int R, int D, int W, float gate_eps) {
   const int tpn = W / V;
@@ -504,7 +531,9 @@ gated_edge_gate_grad_kernel(const Word* __restrict__ dx, const float* __restrict
         const float s = sigmoid(h[i]);
         float v = __fmaf_rn(dnum[i], b[i], dden[i]) * s * (1.f - s);
         if constexpr (kBn) {
-          const float dy = bn_out<Word>(h[i], ar[i], cr[i]) > 0.f ? gv[i] : 0.f;
+          const float dy = bn_out<Word>(h[i], ar[i], cr[i]) > 0.f
+                               ? dropped<Word, kDrop>(gv[i], keep, off + i, scale)
+                               : 0.f;
           v += dy * ar[i] + k1[i] + k2[i] * h[i];
         }
         t[i] = rnd<Word>(v);
@@ -545,41 +574,46 @@ void gate_v(const void* ew, const void* ej, const void* bj, const void* d, const
       static_cast<float*>(num), static_cast<float*>(part), R, D, W, gate_eps);
 }
 
-template <typename Word, int V>
+template <typename Word, int V, bool kDrop>
 void update_v(const void* e, const void* e_hat, const void* mask, const void* stats,
-              void* e_new, int R, int D, int W, cudaStream_t s) {
+              const void* keep, float scale, void* e_new, int R, int D, int W,
+              cudaStream_t s) {
   const int n = R * D * (W / V);
-  gated_edge_update_kernel<Word, V><<<(n + kFlatThreads - 1) / kFlatThreads,
-                                      kFlatThreads, 0, s>>>(
+  gated_edge_update_kernel<Word, V, kDrop><<<(n + kFlatThreads - 1) / kFlatThreads,
+                                             kFlatThreads, 0, s>>>(
       static_cast<const Word*>(e), static_cast<const Word*>(e_hat),
       static_cast<const float*>(mask), static_cast<const float*>(stats),
-      static_cast<Word*>(e_new), R * D, W);
+      static_cast<const uint8_t*>(keep), scale, static_cast<Word*>(e_new), R * D, W);
 }
 
-template <typename Word, int V>
+template <typename Word, int V, bool kDrop>
 void relu_grad_v(const void* g, const void* e_hat, const void* mask, const void* stats,
-                 void* part, int R, int D, int W, cudaStream_t s) {
+                 const void* keep, float scale, void* part, int R, int D, int W,
+                 cudaStream_t s) {
   const int rows = rows_of(W, V);
   const size_t smem = 2 * (size_t)rows * W * sizeof(float);
-  gated_edge_relu_grad_kernel<Word, V><<<(R + rows - 1) / rows, rows * (W / V), smem, s>>>(
-      static_cast<const Word*>(g), static_cast<const Word*>(e_hat),
-      static_cast<const float*>(mask), static_cast<const float*>(stats),
-      static_cast<float*>(part), R, D, W);
+  gated_edge_relu_grad_kernel<Word, V, kDrop>
+      <<<(R + rows - 1) / rows, rows * (W / V), smem, s>>>(
+          static_cast<const Word*>(g), static_cast<const Word*>(e_hat),
+          static_cast<const float*>(mask), static_cast<const float*>(stats),
+          static_cast<const uint8_t*>(keep), scale, static_cast<float*>(part), R, D, W);
 }
 
-template <typename Word, int V, bool kBn>
+template <typename Word, int V, bool kBn, bool kDrop>
 void gate_grad_v(const void* dx, const void* den, const void* num, const void* e_hat,
                  const void* bj, const void* g, const void* mask, const void* stats,
-                 const void* kk, void* dt, void* dbj, void* dd, int R, int D, int W,
-                 float gate_eps, cudaStream_t s) {
+                 const void* kk, const void* keep, float scale, void* dt, void* dbj,
+                 void* dd, int R, int D, int W, float gate_eps, cudaStream_t s) {
   const int rows = rows_of(W, V);
-  gated_edge_gate_grad_kernel<Word, V, kBn><<<(R + rows - 1) / rows, rows * (W / V), 0, s>>>(
-      static_cast<const Word*>(dx), static_cast<const float*>(den),
-      static_cast<const float*>(num), static_cast<const Word*>(e_hat),
-      static_cast<const Word*>(bj), static_cast<const Word*>(g),
-      static_cast<const float*>(mask), static_cast<const float*>(stats),
-      static_cast<const float*>(kk), static_cast<Word*>(dt), static_cast<Word*>(dbj),
-      static_cast<Word*>(dd), R, D, W, gate_eps);
+  gated_edge_gate_grad_kernel<Word, V, kBn, kDrop>
+      <<<(R + rows - 1) / rows, rows * (W / V), 0, s>>>(
+          static_cast<const Word*>(dx), static_cast<const float*>(den),
+          static_cast<const float*>(num), static_cast<const Word*>(e_hat),
+          static_cast<const Word*>(bj), static_cast<const Word*>(g),
+          static_cast<const float*>(mask), static_cast<const float*>(stats),
+          static_cast<const float*>(kk), static_cast<const uint8_t*>(keep), scale,
+          static_cast<Word*>(dt), static_cast<Word*>(dbj), static_cast<Word*>(dd), R, D,
+          W, gate_eps);
 }
 
 // V = 8 bytes of words (4 bfloat16, 2 float32) or 1
@@ -633,25 +667,36 @@ int gts_gated_edge_stats(int bf16, const void* part, int P, const void* count,
   return (int)cudaGetLastError();
 }
 
+// keep (null: no dropout) is dropout's mask on the edge update, scale 1 / (1 - rate)
 int gts_gated_edge_update(int bf16, int V, const void* e, const void* e_hat,
-                          const void* mask, const void* stats, void* e_new, int R, int D,
-                          int W, void* stream) {
+                          const void* mask, const void* stats, const void* keep,
+                          float scale, void* e_new, int R, int D, int W, void* stream) {
   const int rc = check(bf16, R, D, W, V);
   if (rc != (int)cudaSuccess) return rc;
   if (R == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GTS_BY_TYPE(bf16, V, (update_v<Word, kV>(e, e_hat, mask, stats, e_new, R, D, W, s)));
+  if (keep)
+    GTS_BY_TYPE(bf16, V, (update_v<Word, kV, true>(e, e_hat, mask, stats, keep, scale,
+                                                   e_new, R, D, W, s)));
+  else
+    GTS_BY_TYPE(bf16, V, (update_v<Word, kV, false>(e, e_hat, mask, stats, keep, scale,
+                                                    e_new, R, D, W, s)));
   return (int)cudaGetLastError();
 }
 
 int gts_gated_edge_relu_grad(int bf16, int V, const void* g, const void* e_hat,
-                             const void* mask, const void* stats, void* part, int R,
-                             int D, int W, void* stream) {
+                             const void* mask, const void* stats, const void* keep,
+                             float scale, void* part, int R, int D, int W, void* stream) {
   const int rc = check(bf16, R, D, W, V);
   if (rc != (int)cudaSuccess) return rc;
   if (R == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GTS_BY_TYPE(bf16, V, (relu_grad_v<Word, kV>(g, e_hat, mask, stats, part, R, D, W, s)));
+  if (keep)
+    GTS_BY_TYPE(bf16, V, (relu_grad_v<Word, kV, true>(g, e_hat, mask, stats, keep, scale,
+                                                      part, R, D, W, s)));
+  else
+    GTS_BY_TYPE(bf16, V, (relu_grad_v<Word, kV, false>(g, e_hat, mask, stats, keep, scale,
+                                                       part, R, D, W, s)));
   return (int)cudaGetLastError();
 }
 
@@ -672,20 +717,26 @@ int gts_gated_edge_stats_grad(const void* part, int P, const void* count, const 
 int gts_gated_edge_gate_grad(int bf16, int V, const void* dx, const void* den,
                              const void* num, const void* e_hat, const void* bj,
                              const void* g, const void* mask, const void* stats,
-                             const void* kk, void* dt, void* dbj, void* dd, int R, int D,
-                             int W, float gate_eps, void* stream) {
+                             const void* kk, const void* keep, float scale, void* dt,
+                             void* dbj, void* dd, int R, int D, int W, float gate_eps,
+                             void* stream) {
   const int rc = check(bf16, R, D, W, V);
   if (rc != (int)cudaSuccess) return rc;
   if (R == 0) return (int)cudaSuccess;
+  if (keep && !g) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (g)
-    GTS_BY_TYPE(bf16, V, (gate_grad_v<Word, kV, true>(dx, den, num, e_hat, bj, g, mask,
-                                                      stats, kk, dt, dbj, dd, R, D, W,
-                                                      gate_eps, s)));
+  if (keep)
+    GTS_BY_TYPE(bf16, V, (gate_grad_v<Word, kV, true, true>(
+                             dx, den, num, e_hat, bj, g, mask, stats, kk, keep, scale, dt,
+                             dbj, dd, R, D, W, gate_eps, s)));
+  else if (g)
+    GTS_BY_TYPE(bf16, V, (gate_grad_v<Word, kV, true, false>(
+                             dx, den, num, e_hat, bj, g, mask, stats, kk, keep, scale, dt,
+                             dbj, dd, R, D, W, gate_eps, s)));
   else
-    GTS_BY_TYPE(bf16, V, (gate_grad_v<Word, kV, false>(dx, den, num, e_hat, bj, g, mask,
-                                                       stats, kk, dt, dbj, dd, R, D, W,
-                                                       gate_eps, s)));
+    GTS_BY_TYPE(bf16, V, (gate_grad_v<Word, kV, false, false>(
+                             dx, den, num, e_hat, bj, g, mask, stats, kk, keep, scale, dt,
+                             dbj, dd, R, D, W, gate_eps, s)));
   return (int)cudaGetLastError();
 }
 

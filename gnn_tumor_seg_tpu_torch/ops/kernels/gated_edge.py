@@ -13,6 +13,12 @@ update (module doc of models/gps.py):
                                 the `count` real slots, masked as
                                 MaskedBatchNorm does)
 
+Under dropout the edge update is e + keep ⊙ ReLU(BN_e(ê)) / (1 - rate),
+`drop` = (keep, rate), keep a bool [B, N, D, W] mask that the caller draws
+(models/gps.py, after the node's mask, in the generator's order the layer
+always drew them); the kernels take it as an input, as the plain version
+does.
+
 `gated_edge_plain` is that composition in plain PyTorch, as models/gps.py
 ran it before the kernels; autograd gives its backward. The kernels
 (csrc/gated_edge.cu: the forward's `gated_edge_gate_kernel`,
@@ -31,11 +37,9 @@ through torch: eW = e @ w_c forward, and backward de = g + dê @ w_cᵀ (one
 addmm) and dw_c = eᵀ dê.
 
 `gated_edge` is the entry models/gps.py calls: it takes the plain version
-for a CPU tensor and under dropout (whose masks sit between the gate and
-the edge update; no configuration of the benchmark draws dropout), and on
-any other device GatedEdge (the kernels and their backward) or, without a
-gradient, the forward kernels alone: it launches them or raises, never
-falls back. `gated_edge_forward` and `gated_edge_backward` count their
+for a CPU tensor, and on any other device GatedEdge (the kernels and their
+backward) or, without a gradient, the forward kernels alone, with or
+without dropout: it launches them or raises, never falls back. `gated_edge_forward` and `gated_edge_backward` count their
 kernel launches in `.launches` (3 + 3 a layer with an edge update, 1 + 1
 without). Both index with 32-bit integers and raise ValueError when
 B*N*D*W reaches 2**31.
@@ -51,8 +55,7 @@ from ...build import build_cuda_library, check_launch
 from .fused_gat import _check_like, _check_tensors, _stream
 
 __all__ = ["gated_edge", "gated_edge_plain", "gated_edge_forward",
-           "gated_edge_backward", "GatedEdge", "takes_kernels", "build",
-           "GATE_EPS"]
+           "gated_edge_backward", "GatedEdge", "build", "GATE_EPS"]
 
 _SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                        "gated_edge.cu")
@@ -79,10 +82,13 @@ def build() -> str:
     lib.gts_gated_edge_rows.restype = i32
     lib.gts_gated_edge_gate.argtypes = [i32, i32] + [vp] * 11 + [i32] * 3 + [f32, vp]
     lib.gts_gated_edge_stats.argtypes = [i32, vp, i32] + [vp] * 6 + [i32, f32, f32, i32, vp]
-    lib.gts_gated_edge_update.argtypes = [i32, i32] + [vp] * 5 + [i32] * 3 + [vp]
-    lib.gts_gated_edge_relu_grad.argtypes = [i32, i32] + [vp] * 5 + [i32] * 3 + [vp]
+    lib.gts_gated_edge_update.argtypes = ([i32, i32] + [vp] * 5 + [f32, vp]
+                                          + [i32] * 3 + [vp])
+    lib.gts_gated_edge_relu_grad.argtypes = ([i32, i32] + [vp] * 5 + [f32, vp]
+                                             + [i32] * 3 + [vp])
     lib.gts_gated_edge_stats_grad.argtypes = [vp, i32] + [vp] * 6 + [i32, i32, vp]
-    lib.gts_gated_edge_gate_grad.argtypes = [i32, i32] + [vp] * 12 + [i32] * 3 + [f32, vp]
+    lib.gts_gated_edge_gate_grad.argtypes = ([i32, i32] + [vp] * 10 + [f32] + [vp] * 3
+                                             + [i32] * 3 + [f32, vp])
     for fn in (lib.gts_gated_edge_gate, lib.gts_gated_edge_stats,
                lib.gts_gated_edge_update, lib.gts_gated_edge_relu_grad,
                lib.gts_gated_edge_stats_grad, lib.gts_gated_edge_gate_grad):
@@ -91,20 +97,14 @@ def build() -> str:
     return log
 
 
-def takes_kernels(t: torch.Tensor, dropout) -> bool:
-    """Whether `gated_edge` launches the kernels for tensors like t: off the
-    CPU and without dropout."""
-    return t.device.type != "cpu" and dropout is None
-
-
 def gated_edge_plain(e, w_c, e_j, b_j, d, a, emask, pad_slots, bn, count,
-                     train: bool, dropout=None):
+                     train: bool, drop=None):
     """The block in plain PyTorch (module doc): e, e_j, b_j [B, N, D, W], w_c
     [W, W], d, a [B, N, W], all in the compute type; emask [B, N, D] float32,
     pad_slots [B, N, 1] each row's padded slots, `bn` the layer's
     MaskedBatchNorm (None: no edge update), `count` the real slots (a device
-    scalar), `dropout` None or a function of the edge update's ReLU output.
-    -> (x [B, N, W], e' [B, N, D, W] or None).
+    scalar), `drop` None or (keep, rate), the edge update's dropout (module
+    doc). -> (x [B, N, W], e' [B, N, D, W] or None).
 
     ê is masked once: 0 on padded slots, whose sigmoid 1/2 the denominator
     takes out again (b_j is 0 there, so the numerator needs nothing), and
@@ -119,7 +119,11 @@ def gated_edge_plain(e, w_c, e_j, b_j, d, a, emask, pad_slots, bn, count,
     if bn is None:
         return x, None
     e_new = torch.relu(bn(e_hat, None, count, train))
-    return x, e + (e_new if dropout is None else dropout(e_new))
+    if drop is not None:
+        keep, rate = drop
+        e_new = torch.where(keep, e_new / (1.0 - rate),
+                            torch.zeros((), dtype=cd, device=e.device))
+    return x, e + e_new
 
 
 def _dims(ew, e_j, b_j, d, a, emask):
@@ -152,6 +156,20 @@ def _vec(tensors, W: int, dtype) -> int:
     return v
 
 
+def _keep(drop, shape, bn):
+    """(keep mask or None, scale 1 / (1 - rate)) of `drop` (module doc),
+    checked: a bool mask like the edge tensors, only with an edge update."""
+    if drop is None:
+        return None, 1.0
+    keep, rate = drop
+    if bn is None:
+        raise ValueError("dropout acts on the edge update: drop needs bn")
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"the dropout rate must lie in (0, 1), got {rate}")
+    _check_like(keep, shape, torch.bool, "keep")
+    return keep, 1.0 / (1.0 - rate)
+
+
 def _bn_tensors(bn, W):
     """The BatchNorm's g, b and running statistics, each float32 [W]."""
     out = (bn.g, bn.b, bn.running_mean, bn.running_var)
@@ -161,16 +179,17 @@ def _bn_tensors(bn, W):
 
 
 def gated_edge_forward(ew, e_j, b_j, d, a, emask, e=None, bn=None, count=None,
-                       train: bool = False, save: bool = True):
+                       train: bool = False, save: bool = True, drop=None):
     """The forward kernels from eW = e @ w_c: -> (x, e' or None, saved), saved
     (ê, den, num, stats) for gated_edge_backward, or None without `save`.
 
     With `bn` (the layer's MaskedBatchNorm; e and the real slots' `count`,
     a float32 device scalar, with it) the edge update runs: in training
     over the batch's statistics, whose running ones it updates in place, in
-    evaluation over the running ones. Not differentiable itself: training
-    goes through GatedEdge."""
+    evaluation over the running ones; `drop` (module doc) drops its ReLU's
+    output. Not differentiable itself: training goes through GatedEdge."""
     B, N, D, W = _dims(ew, e_j, b_j, d, a, emask)
+    keep, scale = _keep(drop, ew.shape, bn)
     if _LIB is None:
         build()
     dev = ew.device
@@ -181,6 +200,8 @@ def gated_edge_forward(ew, e_j, b_j, d, a, emask, e=None, bn=None, count=None,
         _check_like(count, (), torch.float32, "count")
         checked += [(e, "e"), (count, "count")]
         checked += [(t, "bn") for t in _bn_tensors(bn, W)]
+    if keep is not None:
+        checked.append((keep, "keep"))
     _check_tensors(dev, checked)
     R = B * N
     bf16 = int(ew.dtype == torch.bfloat16)
@@ -217,7 +238,8 @@ def gated_edge_forward(ew, e_j, b_j, d, a, emask, e=None, bn=None, count=None,
             e_new = torch.empty_like(e)
             rc = _LIB.gts_gated_edge_update(bf16, V, e.data_ptr(), e_hat.data_ptr(),
                                             emask.data_ptr(), stats.data_ptr(),
-                                            e_new.data_ptr(), R, D, W, s)
+                                            ptr(keep), scale, e_new.data_ptr(), R, D,
+                                            W, s)
             check_launch(_LIB, rc, "gated_edge_update")
             gated_edge_forward.launches += 2
     return x, e_new, ((e_hat, den, num, stats) if save else None)
@@ -227,17 +249,19 @@ gated_edge_forward.launches = 0
 
 
 def gated_edge_backward(dx, de_new, e_hat, b_j, emask, den, num, stats, g, count,
-                        train: bool):
+                        train: bool, drop=None):
     """The backward kernels: the forward's saved (ê, den, num, stats), b_j,
-    emask, the BatchNorm's g and `count`, and the gradients dx [B, N, W] and
-    de_new [B, N, D, W] (None without an edge update) -> (dê [B, N, D, W],
-    db_j [B, N, D, W], dd [B, N, W], dg [W], db [W]), dg and db None without
-    an edge update. dê is also the gradient of eW and of e_j."""
+    emask, the BatchNorm's g and `count`, the forward's `drop`, and the
+    gradients dx [B, N, W] and de_new [B, N, D, W] (None without an edge
+    update) -> (dê [B, N, D, W], db_j [B, N, D, W], dd [B, N, W], dg [W],
+    db [W]), dg and db None without an edge update. dê is also the gradient
+    of eW and of e_j."""
     B, N, D, W = _dims(e_hat, b_j, b_j, dx, dx, emask)
+    bn = de_new is not None
+    keep, scale = _keep(drop, e_hat.shape, g if bn else None)
     if _LIB is None:
         build()
     dev = e_hat.device
-    bn = de_new is not None
     checked = [(dx, "dx"), (e_hat, "e_hat"), (b_j, "b_j"), (emask, "emask"),
                (den, "den"), (num, "num")]
     _check_like(den, (B, N, W), torch.float32, "den")
@@ -248,6 +272,8 @@ def gated_edge_backward(dx, de_new, e_hat, b_j, emask, den, num, stats, g, count
         _check_like(g, (W,), torch.float32, "g")
         _check_like(count, (), torch.float32, "count")
         checked += [(de_new, "de_new"), (stats, "stats"), (g, "g"), (count, "count")]
+    if keep is not None:
+        checked.append((keep, "keep"))
     _check_tensors(dev, checked)
     R = B * N
     bf16 = int(e_hat.dtype == torch.bfloat16)
@@ -257,6 +283,10 @@ def gated_edge_backward(dx, de_new, e_hat, b_j, emask, den, num, stats, g, count
     dd = torch.empty_like(dx)
     V = _vec([dx, e_hat, b_j, den, num, de_new, dt, db_j, dd], W, e_hat.dtype)
     s = _stream(dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     dg = db = kk = None
     with torch.cuda.device(dev):
         if bn:
@@ -264,8 +294,8 @@ def gated_edge_backward(dx, de_new, e_hat, b_j, emask, den, num, stats, g, count
             part = torch.empty((2, P, W), **f32)
             rc = _LIB.gts_gated_edge_relu_grad(bf16, V, de_new.data_ptr(),
                                                e_hat.data_ptr(), emask.data_ptr(),
-                                               stats.data_ptr(), part.data_ptr(),
-                                               R, D, W, s)
+                                               stats.data_ptr(), ptr(keep), scale,
+                                               part.data_ptr(), R, D, W, s)
             check_launch(_LIB, rc, "gated_edge_relu_grad")
             dg = torch.empty((W,), **f32)
             db = torch.empty((W,), **f32)
@@ -280,7 +310,8 @@ def gated_edge_backward(dx, de_new, e_hat, b_j, emask, den, num, stats, g, count
             bf16, V, dx.data_ptr(), den.data_ptr(), num.data_ptr(), e_hat.data_ptr(),
             b_j.data_ptr(), de_new.data_ptr() if bn else None, emask.data_ptr(),
             stats.data_ptr() if bn else None, kk.data_ptr() if bn else None,
-            dt.data_ptr(), db_j.data_ptr(), dd.data_ptr(), R, D, W, GATE_EPS, s)
+            ptr(keep), scale, dt.data_ptr(), db_j.data_ptr(), dd.data_ptr(), R, D, W,
+            GATE_EPS, s)
         check_launch(_LIB, rc, "gated_edge_gate_grad")
         gated_edge_backward.launches += 1
     return dt, db_j, dd, dg, db
@@ -294,46 +325,49 @@ class GatedEdge(torch.autograd.Function):
     w_c and the gradients' GEMMs in torch (cuBLAS)."""
 
     @staticmethod
-    def forward(ctx, e, w_c, e_j, b_j, d, a, g, b, emask, count, bn, train):
+    def forward(ctx, e, w_c, e_j, b_j, d, a, g, b, emask, count, bn, train, drop):
         ew = e @ w_c
         x, e_new, (e_hat, den, num, stats) = gated_edge_forward(
-            ew, e_j, b_j, d, a, emask, e, bn, count, train)
+            ew, e_j, b_j, d, a, emask, e, bn, count, train, drop=drop)
         ctx.train = train
-        ctx.save_for_backward(e, w_c, e_hat, b_j, emask, den, num, stats, g, count)
+        ctx.rate = None if drop is None else drop[1]
+        keep = None if drop is None else drop[0]
+        ctx.save_for_backward(e, w_c, e_hat, b_j, emask, den, num, stats, g, count,
+                              keep)
         return x, e_new
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dx, de_new):
-        e, w_c, e_hat, b_j, emask, den, num, stats, g, count = ctx.saved_tensors
+        e, w_c, e_hat, b_j, emask, den, num, stats, g, count, keep = ctx.saved_tensors
         if de_new is not None:
             de_new = de_new.contiguous()
         dt, db_j, dd, dg, db = gated_edge_backward(
             dx.contiguous(), de_new, e_hat, b_j, emask, den, num, stats, g, count,
-            ctx.train)
+            ctx.train, None if keep is None else (keep, ctx.rate))
         W = w_c.shape[0]
         flat = dt.view(-1, W)
         de = (flat @ w_c.t() if de_new is None
               else torch.addmm(de_new.view(-1, W), flat, w_c.t()))
         dw_c = e.reshape(-1, W).t() @ flat
         return (de.view(e.shape), dw_c, dt, db_j, dd, dx, dg, db, None, None, None,
-                None)
+                None, None)
 
 
 def gated_edge(e, w_c, e_j, b_j, d, a, emask, pad_slots, bn, count, train: bool,
-               dropout=None):
+               drop=None):
     """(x, e' or None) as gated_edge_plain (its arguments): the plain version
-    for a CPU tensor or with `dropout`, else the kernels (GatedEdge when a
-    gradient is needed)."""
-    if not takes_kernels(e, dropout):
+    for a CPU tensor, else the kernels (GatedEdge when a gradient is
+    needed)."""
+    if e.device.type == "cpu":
         return gated_edge_plain(e, w_c, e_j, b_j, d, a, emask, pad_slots, bn, count,
-                                train, dropout)
+                                train, drop)
     e, e_j, b_j, d, a = (t.contiguous() for t in (e, e_j, b_j, d, a))
     g, b = (None, None) if bn is None else (bn.g, bn.b)
     inputs = (e, w_c, e_j, b_j, d, a, g, b)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in inputs):
-        return GatedEdge.apply(*inputs, emask, count, bn, train)
+        return GatedEdge.apply(*inputs, emask, count, bn, train, drop)
     x, e_new, _ = gated_edge_forward(e @ w_c, e_j, b_j, d, a, emask, e, bn, count,
-                                     train, save=False)
+                                     train, save=False, drop=drop)
     return x, e_new

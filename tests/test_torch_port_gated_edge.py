@@ -3,13 +3,15 @@
 On the CPU: the plain version against the composition models/gps.py ran
 before the kernels (`_composition`, its lines as they were), forward and
 every gradient, bitwise; a GPS forward and backward with the block's call
-site against the layer with that composition in its place, bitwise; the
-step counters; the wrappers' refusals and dispatch.
+site against the layer with that composition in its place, bitwise, and
+under dropout against the layer's former forward (`_former_forward`: the
+same masks from the same generator); the step counters; the wrappers'
+refusals and dispatch.
 
 On the card (marked `card`; the `card` fixture skips without a CUDA
 device): the kernels against the float32 plain version on the same inputs,
-at small shapes and at the train-gps-b6 cell's, and two launches of forward
-and backward bitwise equal. The file imports no JAX, so it runs on the card
+at small shapes and at the train-gps-b6 cell's, with and without an edge
+dropout mask, and two launches of forward and backward bitwise equal. The file imports no JAX, so it runs on the card
 without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -q -s \\
@@ -27,9 +29,9 @@ slots keep the BatchNorm's output y at least 0.05 from the ReLU's kink
 (`_clear_of_the_kink`): a slot within a rounding of it takes the other side
 in bfloat16 than in float32, in the plain bfloat16 version as in the
 kernels though not always at the same slots, and moves its channel's
-gradients by a whole upstream value (up to 0.9 of the largest dê seen).
-chip_smoke.py `phase_gated_edge_check` holds the kernels on unmoved inputs
-to twice the plain bfloat16 version's own gap.
+gradients by a whole upstream value (up to 0.9 of the largest dê seen). chip_smoke.py `phase_gated_edge_check`
+moves its inputs the same way (`gated_edge_clear_of_the_kink`) and holds
+them to the same limits.
 """
 
 import math
@@ -40,7 +42,9 @@ import torch
 from gnn_tumor_seg_tpu_torch.config import HyperParams
 from gnn_tumor_seg_tpu_torch.data.synthetic import SyntheticGraphDataset
 from gnn_tumor_seg_tpu_torch.models.factory import init_graph_net
-from gnn_tumor_seg_tpu_torch.models.gps import MaskedBatchNorm
+from gnn_tumor_seg_tpu_torch.models import gps
+from gnn_tumor_seg_tpu_torch.models.gps import GPSLayer, MaskedBatchNorm
+from gnn_tumor_seg_tpu_torch.models.sage import _dropout
 from gnn_tumor_seg_tpu_torch.ops.graph import batch_graphs, masked_copy
 from gnn_tumor_seg_tpu_torch.ops.kernels import gated_edge as ge
 from gnn_tumor_seg_tpu_torch.ops.kernels import launch_counts
@@ -61,7 +65,8 @@ def card():
 def _composition(e, w_c, e_j, b_j, d, a, emask, pad_slots, bn, count, train,
                  dropout=None):
     """The block as models/gps.py computed it before ops/kernels/gated_edge.py
-    (its lines, with the layer's names made arguments)."""
+    (its lines, with the layer's names made arguments; `dropout` a function
+    of the edge update's ReLU output, its _dropout call)."""
     cd = e.dtype
     e_hat = ((e @ w_c).add_(e_j).add_(d[:, :, None, :])
              .mul_(emask[..., None].to(cd)))
@@ -72,7 +77,52 @@ def _composition(e, w_c, e_j, b_j, d, a, emask, pad_slots, bn, count, train,
     if bn is None:
         return x, None
     e_new = torch.relu(bn(e_hat, None, count, train))
-    return x, e + e_new
+    return x, e + (e_new if dropout is None else dropout(e_new))
+
+
+def _former_forward(self, graph, h, e, counts, train, dropout=0.0, generator=None):
+    """GPSLayer.forward as it was before ops/kernels/gated_edge.py (its lines,
+    the spans and comments left out)."""
+    cd = h.dtype
+    W = self.width
+    nmask, emask = graph.node_mask, graph.nbr_mask
+    n_nodes, n_edges, pad_slots, n_real = counts
+    drop = dropout if train else 0.0
+
+    def p(name):
+        return getattr(self, name).to(cd)
+
+    adbe = h @ p("w_adbe")
+    a = adbe[..., :W] + p("b_a")
+    d = adbe[..., W:2 * W] + (p("b_d") + p("b_c"))
+    b_j, e_j = (gps.slot_gather.gather_slots(adbe[..., k * W:(k + 1) * W]
+                                             + p(f"b_{c}"), graph.nbr, emask,
+                                             graph.rslot)
+                for k, c in ((2, "b"), (3, "e")))
+    e_hat = ((e @ p("w_c")).add_(e_j).add_(d[:, :, None, :])
+             .mul_(emask[..., None].to(cd)))
+    sigma = torch.sigmoid(e_hat)
+    den = sigma.sum(2, dtype=torch.float32) - 0.5 * pad_slots
+    num = (sigma * b_j).sum(2, dtype=torch.float32)
+    x = a + (num / (den + 1e-6)).to(cd)
+    x = torch.relu(self.bn_x(x, nmask, n_nodes, train))
+    h_local = h + _dropout(x, drop, generator)
+    if self.edge_out:
+        e_new = torch.relu(self.bn_e(e_hat, None, n_edges, train))
+        e = e + _dropout(e_new, drop, generator)
+    else:
+        e = None
+    h_local = self.bn_local(h_local, nmask, n_nodes, train)
+    b_qkv = torch.cat([p("b_q"), p("b_k"), p("b_v")])
+    qkv = h @ p("w_qkv") + b_qkv
+    att = (gps.graph_attention(qkv, self.heads, nmask, n_real) @ p("w_o")
+           + p("b_o"))
+    h_attn = self.bn_attn(h + _dropout(att, drop, generator), nmask, n_nodes, train)
+    s = h_local + h_attn
+    f = _dropout(torch.relu(s @ p("w_ff1") + p("b_ff1")), drop, generator)
+    f = _dropout(f @ p("w_ff2") + p("b_ff2"), drop, generator)
+    h = self.bn_ff(s + f, nmask, n_nodes, train)
+    return h, e
 
 
 def _inputs(B, N, D, width, dtype, seed, device="cpu", real=None, slot_p=0.6):
@@ -129,10 +179,12 @@ def _clear_of_the_kink(t, emask, count, bn, train, margin=0.05):
     raise AssertionError("inputs still near the ReLU's kink")
 
 
-def _run(block, t, emask, pad, count, bn, train, edge_out=True, dtype=None):
+def _run(block, t, emask, pad, count, bn, train, edge_out=True, dtype=None,
+         drop=None):
     """Forward and backward of `block` on copies of the inputs (cast to
-    `dtype` if given) and of the BatchNorm: (x, e', running statistics,
-    gradients by name)."""
+    `dtype` if given) and of the BatchNorm, with the edge update's `drop`
+    (keep, rate) if given: (x, e', running statistics, gradients by
+    name)."""
     dtype = dtype or t["e"].dtype
     leaves = {k: t[k].to(dtype).detach().clone().requires_grad_(True)
               for k in GRADS[:6]}
@@ -141,7 +193,7 @@ def _run(block, t, emask, pad, count, bn, train, edge_out=True, dtype=None):
         norm = MaskedBatchNorm(bn.g.shape[0]).to(bn.g.device)
         norm.load_state_dict(bn.state_dict())
     x, e_new = block(leaves["e"], leaves["w_c"], leaves["e_j"], leaves["b_j"],
-                     leaves["d"], leaves["a"], emask, pad, norm, count, train)
+                     leaves["d"], leaves["a"], emask, pad, norm, count, train, drop)
     loss = (x.float() * t["dx"].float()).sum()
     if edge_out:
         loss = loss + (e_new.float() * t["de"].float()).sum()
@@ -185,10 +237,13 @@ def _gps_batch(n_graphs=3):
     return batch_graphs(graphs + [masked_copy(graphs[0])])
 
 
-def _gps_step(model, batch, mode):
+def _gps_step(model, batch, mode, seed=None):
     model.zero_grad()
+    gen = None
+    if seed is not None:
+        gen = torch.Generator(device=batch.node_mask.device).manual_seed(seed)
     with precision_scope(mode):
-        out = model(batch, train=True)
+        out = model(batch, train=True, generator=gen)
     (out * torch.linspace(-1, 1, out.shape[-1], device=out.device)).sum().backward()
     return out, [p.grad.clone() for p in model.parameters()]
 
@@ -214,6 +269,31 @@ def test_gps_step_matches_the_former_layer(mode, monkeypatch):
     assert all(torch.equal(after[k], v) for k, v in model.state_dict().items())
 
 
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+def test_gps_dropout_step_matches_the_former_layer(mode, monkeypatch):
+    """With feature dropout 0.25 and a seeded generator, a GPS forward and
+    backward gives bitwise the logits, gradients and running statistics of
+    the layer's former forward: the node's mask of x and then the edge
+    update's are drawn in the order the former layer drew them."""
+    hp = HyperParams(in_feats=20, layer_sizes=[16, 16, 16], gps_heads=2,
+                     gps_post_layers=3, out_classes=4, feature_dropout=0.25)
+    model = init_graph_net("GPS", hp)
+    assert model.dropout == 0.25
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = _gps_batch()
+    out, grads = _gps_step(model, batch, mode, seed=3)
+    after = {k: v.clone() for k, v in model.state_dict().items()}
+    model.load_state_dict(state)
+    monkeypatch.setattr(GPSLayer, "forward", _former_forward)
+    want_out, want_grads = _gps_step(model, batch, mode, seed=3)
+    assert torch.equal(out, want_out)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want_grads))
+    assert all(torch.equal(after[k], v) for k, v in model.state_dict().items())
+    # the masks did drop something: another seed gives other logits
+    model.load_state_dict(state)
+    assert not torch.equal(_gps_step(model, batch, mode, seed=4)[0], want_out)
+
+
 def test_counters_count_the_edge_blocks_on_the_cpu():
     """gated_edge_layers counts every layer's block a step; on the CPU none
     takes the kernels."""
@@ -229,25 +309,32 @@ def test_counters_count_the_edge_blocks_on_the_cpu():
 
 
 def test_dropout_and_the_cpu_take_the_plain_version(monkeypatch):
-    """On the CPU, and with a dropout function on any device, `gated_edge`
-    is the plain version: no kernel is built or launched."""
+    """On the CPU `gated_edge` is the plain version, with and without an
+    edge dropout mask: no kernel is built or launched, and with the mask e'
+    is e + keep ⊙ ReLU(BN_e(ê)) / (1 - rate), as the former dropout gave
+    it."""
     def no_build():
         raise AssertionError("a kernel library was built")
 
     monkeypatch.setattr(ge, "_LIB", None)
     monkeypatch.setattr(ge, "build", no_build)
     t, emask, pad, count, bn = _inputs(2, 6, 4, W, torch.float32, seed=1)
+    keep = torch.rand(t["e"].shape, generator=torch.Generator().manual_seed(2)) < 0.7
     before = launch_counts()
-    got = ge.gated_edge(t["e"], t["w_c"], t["e_j"], t["b_j"], t["d"], t["a"], emask,
-                        pad, bn, count, True)
-    bn2 = MaskedBatchNorm(W)
-    bn2.load_state_dict(bn.state_dict())
-    want = _composition(t["e"], t["w_c"], t["e_j"], t["b_j"], t["d"], t["a"], emask,
-                        pad, bn2, count, True)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert ge.takes_kernels(t["e"].to("meta"), None)
-    assert not ge.takes_kernels(t["e"].to("meta"), lambda x: x)
-    assert not ge.takes_kernels(t["e"], None)
+    outs = []
+    for drop, dropout in ((None, None),
+                          ((keep, 0.3), lambda v: torch.where(keep, v / 0.7,
+                                                              torch.zeros(())))):
+        norms = [MaskedBatchNorm(W) for _ in range(2)]
+        for norm in norms:
+            norm.load_state_dict(bn.state_dict())
+        got = ge.gated_edge(t["e"], t["w_c"], t["e_j"], t["b_j"], t["d"], t["a"],
+                            emask, pad, norms[0], count, True, drop)
+        want = _composition(t["e"], t["w_c"], t["e_j"], t["b_j"], t["d"], t["a"],
+                            emask, pad, norms[1], count, True, dropout)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        outs.append(got[1])
+    assert not torch.equal(*outs)
     assert launch_counts() == before
 
 
@@ -285,10 +372,16 @@ def test_cuda_wrappers_raise_without_the_library(which, monkeypatch):
     ((2, 6, 4, 400), torch.bfloat16, "widths up to 384"),
     ((2, 6, 4, W), torch.float16, "float32 or bfloat16"),
     ((64, 8192, 64, 96), torch.bfloat16, r"B\*N\*D\*W = 3221225472 >= 2\*\*31"),
-], ids=["W=400", "float16", "past 32 bits"])
+    ((2, 6, 4, W), torch.bfloat16, "drop needs bn"),
+    ((2, 6, 4, W), torch.bfloat16, "keep must be torch.bool"),
+    ((2, 6, 4, W), torch.bfloat16, r"rate must lie in \(0, 1\)"),
+], ids=["W=400", "float16", "past 32 bits", "drop without bn", "keep not bool",
+        "rate 1"])
 def test_wrappers_refuse_what_the_kernels_do_not_take(shape, dtype, what, monkeypatch):
-    """Widths past 384, types other than float32 and bfloat16, and offsets
-    past 32 bits raise ValueError before anything is built."""
+    """Widths past 384, types other than float32 and bfloat16, offsets past
+    32 bits, and a dropout mask without an edge update, of another type than
+    bool or at a rate outside (0, 1) raise ValueError before anything is
+    built."""
     def no_build():
         raise AssertionError("a kernel library was built")
 
@@ -296,8 +389,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(shape, dtype, what, monkey
     monkeypatch.setattr(ge, "build", no_build)
     B, N, D, width = shape
     edge, node, emask = _meta(B, N, D, width, dtype)
+    keep = torch.empty(edge.shape, device="meta", dtype=torch.bool)
+    bn = MaskedBatchNorm(width).to("meta")
+    count = torch.empty((), device="meta")
+    extra = {"drop needs bn": dict(drop=(keep, 0.5)),
+             "keep must be": dict(e=edge, bn=bn, count=count,
+                                  drop=(keep.to(edge.dtype), 0.5)),
+             "rate must lie": dict(e=edge, bn=bn, count=count, drop=(keep, 1.0))}
+    kwargs = next((v for k, v in extra.items() if what.startswith(k)), {})
     with pytest.raises(ValueError, match=what):
-        ge.gated_edge_forward(edge, edge, edge, node, node, emask)
+        ge.gated_edge_forward(edge, edge, edge, node, node, emask, **kwargs)
 
 
 def test_launch_counts_list_the_gated_edge_wrappers():
@@ -335,14 +436,14 @@ def _gaps(got, want, emask) -> dict:
 FORWARD = ("x", "e_new", "running_mean", "running_var")
 
 
-def _compare(t, emask, pad, count, bn, train, edge_out):
+def _compare(t, emask, pad, count, bn, train, edge_out, drop=None):
     """Kernels against the float32 plain version on the same inputs (module
-    doc): the gaps by output."""
+    doc), with the edge dropout `drop` if given: the gaps by output."""
     if edge_out:
         _clear_of_the_kink(t, emask, count, bn, train)
-    got = _run(ge.gated_edge, t, emask, pad, count, bn, train, edge_out)
+    got = _run(ge.gated_edge, t, emask, pad, count, bn, train, edge_out, drop=drop)
     want = _run(ge.gated_edge_plain, t, emask, pad, count, bn, train, edge_out,
-                dtype=torch.float32)
+                dtype=torch.float32, drop=drop)
     if edge_out:
         bits = torch.int16 if got[1].dtype == torch.bfloat16 else torch.int32
         assert not got[1][emask == 0].view(bits).any()
@@ -368,6 +469,24 @@ def test_kernels_match_plain_on_the_card(card, width, D, dtype, train, edge_out)
     gaps = _compare(t, emask, pad, count, bn, train, edge_out)
     print(f"[gated_edge] W={width} D={D} {dtype} train={train} "
           f"edge_out={edge_out}: {gaps}")
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("width", [8, 6, 96])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernels_with_dropout_match_plain_on_the_card(card, width, dtype):
+    """An edge dropout mask at rate 0.3 (training, D = 24): the kernels
+    against the float32 plain version with the same mask, e' and every
+    gradient; a dropped slot's e' is e."""
+    t, emask, pad, count, bn = _inputs(3, 40, 24, width, dtype, seed=width + 1,
+                                       device=card)
+    gen = torch.Generator(device=card).manual_seed(width)
+    keep = torch.rand(t["e"].shape, generator=gen, device=card) < 0.7
+    gaps = _compare(t, emask, pad, count, bn, True, True, drop=(keep, 0.3))
+    got = _run(ge.gated_edge, t, emask, pad, count, bn, True, drop=(keep, 0.3))
+    dropped = ~keep & (emask[..., None] > 0)
+    assert torch.equal(got[1][dropped], t["e"][dropped])
+    print(f"[gated_edge] dropout W={width} {dtype}: {gaps}")
 
 
 @pytest.mark.card
@@ -401,6 +520,29 @@ def test_two_launches_are_bitwise_equal(card, dtype):
         if k == "b_j":      # padded slots unwritten
             a, b = a[emask > 0], b[emask > 0]
         assert torch.equal(a, b), k
+
+
+@pytest.mark.card
+def test_gps_dropout_on_the_card_matches_plain(card, monkeypatch):
+    """A GPS exact step with feature dropout 0.25 and a seeded generator:
+    every layer's block launches the kernels, and the logits and gradients
+    are within 1e-4 of those through the plain version with the same
+    generator (each leaf's gap as in the test below)."""
+    hp = HyperParams(in_feats=20, layer_sizes=[16, 16, 16], gps_heads=2,
+                     gps_post_layers=3, out_classes=4, feature_dropout=0.25)
+    model = init_graph_net("GPS", hp).to(card)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = _gps_batch().to(card)
+    before = ge.gated_edge_forward.launches
+    out, grads = _gps_step(model, batch, "exact", seed=3)
+    assert ge.gated_edge_forward.launches - before == 3 + 3 + 1
+    assert all(layer.gated_edge_fused for layer in model.layers)
+    model.load_state_dict(state)
+    monkeypatch.setattr(ge, "gated_edge", ge.gated_edge_plain)
+    want_out, want_grads = _gps_step(model, batch, "exact", seed=3)
+    assert _gap(out, want_out) <= 1e-4
+    median = sorted(float(g.abs().max()) for g in want_grads)[len(want_grads) // 2]
+    assert max(_gap(a, b, scale=median) for a, b in zip(grads, want_grads)) <= 1e-4
 
 
 @pytest.mark.card
